@@ -1,0 +1,412 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``mx_rcnn_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # on a machine with the card
+    python3 chip_smoke.py --cpu-rehearsal # anywhere: tiny shapes, plain ops
+
+Phases (any failure exits non-zero, and the ``ok`` line is printed only
+when every phase passed):
+
+1. No card -> exit 2.  Print the card's name and power limit.
+2. Build the kernels from ``mx_rcnn_tpu_torch/csrc`` (one nvcc per source,
+   all started together) and print the seconds and the ptxas summary.
+3. Hold each kernel against its plain torch version on the card at the
+   serving shapes of ``r50_fpn_coco`` (800x1344 canvas, batch 2): B1
+   ROIAlign in bf16 (within 1 bf16 ulp) and f32 (atol 1e-5), B3 fused
+   middle and B4 NMS bitwise; time both with CUDA events after a warm-up.
+4. Serve ``r50_fpn_coco`` at full width with random weights from a seed:
+   an engine with ``serve.fused_middle=on`` and batch 2 (the ``full``
+   program: B1 + B3), and one with ``rpn.nms_impl=pallas`` (the
+   ``proposals`` program: B4).  Each path runs with the launch counts set
+   to 0 just before it and read just after; every kernel of a path must
+   have launched.  Every response must be finite with boxes inside its
+   image, and the full path must return detections.
+5. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
+   path and the plain torch path on the card must return identical
+   detections; the CPU's are shown beside them.
+6. Print the card's line, the ``kernels`` line and, last,
+   ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+F32_PEAK = 67e12          # H100 SXM float32 outside the tensor cores, FLOP/s
+HBM_RATE = 3.35e12        # H100 SXM HBM3, bytes/s
+IOU_FLOPS = 16            # min/max/sub/mul/add/div/snap/compare of one IoU test
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class Clock:
+    """Times a callable: CUDA events on the card, the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def ms(self, fn, iters: int, warmup: int = 2) -> float:
+        for _ in range(warmup):
+            fn()
+        if not self.cuda:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: int, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / HBM_RATE * 1e3, flops / F32_PEAK * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def greedy_pairs(keep: torch.Tensor, valid: torch.Tensor) -> int:
+    """IoU tests the greedy chain needs on this data: each kept box
+    against every later valid box (keep, valid (..., N) in NMS order)."""
+    later_valid = valid.flip(-1).long().cumsum(-1).flip(-1) - valid.long()
+    return int((later_valid * keep.long()).sum())
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def kernel_phase(dev: torch.device, rehearsal: bool, seed: int) -> dict:
+    """Phase 3: each kernel against its plain version at serving shapes."""
+    from mx_rcnn_tpu_torch.config import get_config
+    from mx_rcnn_tpu_torch.detection.graph import level_anchors
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels, fused_middle_levels_plain
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_keep_sorted_cuda, nms_keep_sorted_plain
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_cuda,
+        multilevel_roi_align_plain,
+    )
+    from mx_rcnn_tpu_torch.ops.proposals import (
+        _pre_nms_candidates,
+        _stack_padded,
+        _topk_candidates,
+        generate_fpn_proposals,
+    )
+
+    cfg = get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco")
+    rpn = cfg.model.rpn
+    b, (h, w) = 2, cfg.data.image_size
+    c = 32 if rehearsal else cfg.model.fpn.channels
+    g = torch.Generator().manual_seed(seed)
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    out = {}
+
+    # Real anchor grids and RPN-like outputs: near-zero logits squashed to
+    # bf16 (the "mixed" policy's scores, full of ties) and small deltas.
+    feats = {l: torch.empty((b, h >> l, w >> l, 1), device=dev) for l in range(2, 7)}
+    anchors = level_anchors(cfg.model, feats)
+    scores = {l: torch.sigmoid(0.5 * torch.randn((b, a.shape[0]), generator=g))
+              .to(torch.bfloat16).to(dev) for l, a in anchors.items()}
+    deltas = {l: (0.2 * torch.randn((b, a.shape[0], 4), generator=g))
+              .to(torch.bfloat16).to(dev) for l, a in anchors.items()}
+    image_hw = torch.tensor([[h, w], [h - 176, w - 320]], dtype=torch.float32, device=dev)
+
+    # B3: the fused middle over stacked per-level top-k candidates.
+    cand = [_topk_candidates(scores[l], deltas[l], anchors[l], rpn.test_pre_nms_top_n)
+            for l in sorted(anchors)]
+    sc_k = _stack_padded([s for s, _, _ in cand], -torch.inf).float()
+    dl_k = _stack_padded([d for _, d, _ in cand], 0.0).float()
+    an_k = _stack_padded([a for _, _, a in cand], 0.0).float()
+    args = (an_k, dl_k, sc_k, image_hw, rpn.min_size, rpn.nms_threshold)
+    got, want = fused_middle_levels(*args), fused_middle_levels_plain(*args)
+    same = all(torch.equal(x, y) for x, y in zip(got, want))
+    keep = got[2]
+    valid = torch.isfinite(got[1])
+    flops = 40 * sc_k.numel() + IOU_FLOPS * greedy_pairs(keep, valid)
+    out["fused_middle"] = dict(
+        match=same, max_abs_err=float((got[0] - want[0]).abs().max()),
+        ms=clock.ms(lambda: fused_middle_levels(*args), iters),
+        plain_ms=clock.ms(lambda: fused_middle_levels_plain(*args), plain_iters),
+        bound=bound(nbytes(an_k, dl_k, sc_k, image_hw, *got), flops),
+        shape=f"B={b} L={sc_k.shape[1]} k={sc_k.shape[2]}",
+    )
+    # The rois B1 pools: these inputs' proposals, as the full path makes them.
+    rois = generate_fpn_proposals(
+        scores, deltas, anchors, image_hw, rpn.test_pre_nms_top_n,
+        rpn.test_post_nms_top_n, rpn.nms_threshold, rpn.min_size, fused_middle=True,
+    ).rois.contiguous()
+
+    # B4: the NMS kernel over each level's score-sorted dense candidates.
+    dense = [_pre_nms_candidates(scores[l], deltas[l], anchors[l], image_hw,
+                                 rpn.test_pre_nms_top_n, rpn.min_size)
+             for l in sorted(anchors)]
+    boxes = _stack_padded([x for x, _ in dense], 0.0)
+    msc = _stack_padded([s for _, s in dense], -torch.inf)
+    order = torch.argsort(-msc, dim=-1, stable=True)
+    sboxes = torch.gather(boxes, 2, order[..., None].expand(*order.shape, 4)).contiguous()
+    svalid = torch.gather(torch.isfinite(msc), 2, order)
+    thresh = rpn.nms_threshold
+    # The serving path launches once per level over the batch: P2's shape.
+    p2 = (sboxes[:, 0].contiguous(), svalid[:, 0].contiguous(), thresh)
+    mismatched, keeps = 0, []
+    for lv in range(sboxes.shape[1]):
+        a = (sboxes[:, lv].contiguous(), svalid[:, lv].contiguous(), thresh)
+        k1, k2 = nms_keep_sorted_cuda(*a), nms_keep_sorted_plain(*a)
+        mismatched += int((k1 != k2).sum())
+        keeps.append(k1)
+    keep = torch.stack(keeps, 1)
+    out["nms"] = dict(
+        match=mismatched == 0, max_abs_err=float(mismatched > 0),
+        ms=clock.ms(lambda: nms_keep_sorted_cuda(*p2), iters),
+        plain_ms=clock.ms(lambda: nms_keep_sorted_plain(*p2), plain_iters),
+        bound=bound(nbytes(p2[0], p2[1], keep[:, 0]),
+                    IOU_FLOPS * greedy_pairs(keep[:, 0], p2[1])),
+        shape=f"B={b} n={sboxes.shape[2]} (one level)",
+    )
+
+    # B1: ROIAlign over a P2-P5 pyramid, bf16 (the serving dtype) and f32.
+    s, sr = cfg.model.rcnn.pooled_size, cfg.model.rcnn.sampling_ratio
+    for dt, name in ((torch.bfloat16, "roi_align"), (torch.float32, "roi_align_f32")):
+        pyr = {l: torch.randn((b, h >> l, w >> l, c), generator=g).to(dt).to(dev)
+               for l in range(2, 6)}
+        got = multilevel_roi_align_cuda(pyr, rois, s, sr)
+        want = multilevel_roi_align_plain(pyr, rois, s, sr)
+        diff = (got.float() - want.float()).abs()
+        if dt == torch.bfloat16:
+            same = bool((diff <= bf16_ulp(want.float())).all())
+        else:
+            same = bool((diff <= 1e-5).all())
+        flops = got.numel() * (sr * sr * 14 + 1)
+        out[name] = dict(
+            match=same, max_abs_err=float(diff.max()),
+            ms=clock.ms(lambda: multilevel_roi_align_cuda(pyr, rois, s, sr), iters),
+            plain_ms=clock.ms(lambda: multilevel_roi_align_plain(pyr, rois, s, sr),
+                              plain_iters),
+            bound=bound(nbytes(*pyr.values(), rois, got), flops),
+            shape=f"B={b} R={rois.shape[1]} C={c} {str(dt).split('.')[-1]}",
+        )
+    return out
+
+
+def check_response(res: dict, height: int, width: int) -> None:
+    boxes, scores = res["boxes"], res["scores"]
+    if boxes.ndim != 2 or boxes.shape[1] != 4 or len(scores) != len(boxes):
+        raise AssertionError(f"malformed response: boxes {boxes.shape}, scores {scores.shape}")
+    if not (np.isfinite(boxes).all() and np.isfinite(scores).all()):
+        raise AssertionError("non-finite boxes or scores")
+    if len(boxes) and (
+        boxes.min() < 0 or boxes[:, 0::2].max() > width - 1 or boxes[:, 1::2].max() > height - 1
+        or (boxes[:, 2] < boxes[:, 0]).any() or (boxes[:, 3] < boxes[:, 1]).any()
+    ):
+        raise AssertionError(f"boxes outside the {height}x{width} image")
+
+
+def serve_path(name, engine, images, counters, timeout) -> dict:
+    """Drive one engine over ``images`` with every launch count set to 0
+    just before and read just after; returns the path's numbers."""
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    reqs = [engine.submit(img) for img in images]
+    results = [r.result(timeout) for r in reqs]
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for img, res in zip(images, results):
+        check_response(res, *img.shape[:2])
+    lat = [1e3 * (r.served_at - r.submitted_at) for r in reqs]
+    counts = [len(r["scores"]) for r in results]
+    log(f"[serve:{name}] {len(images)} requests in {wall:.3f} s = {len(images) / wall:.2f} img/s; "
+        f"latency ms per request {[round(x, 1) for x in lat]}; outputs per request {counts}; "
+        f"launches {launches}")
+    return {"launches": launches, "counts": counts}
+
+
+def serving_phase(dev, rehearsal: bool, seed: int) -> dict:
+    """Phase 4: r50_fpn_coco at full width through the port's engine."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_cuda
+    from mx_rcnn_tpu_torch.serve.engine import build_engine
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    counters = {"roi_align": multilevel_roi_align_cuda, "fused_middle": fused_middle_levels,
+                "nms": nms_mask_cuda}
+    base = get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco")
+    variables = init_variables(base.model, torch.Generator().manual_seed(seed))
+    # Random heads put every class near 1/81, under test.score_threshold;
+    # a few favoured classes make the full path return detections.
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    rng = np.random.RandomState(seed)
+    sizes = ([(96, 128), (128, 100), (80, 120)] if rehearsal
+             else [(480, 640), (800, 1333), (600, 1000), (427, 640), (640, 480)])
+    images = [rng.uniform(0, 255, (hh, ww, 3)).astype(np.float32) for hh, ww in sizes]
+    timeout = 600.0
+
+    out = {}
+    full_cfg = apply_overrides(base, ["serve.fused_middle=on", "serve.batch_size=2"])
+    t0 = time.perf_counter()
+    with build_engine(full_cfg, variables, device=dev) as engine:
+        log(f"[serve:full] warm-up {time.perf_counter() - t0:.1f} s "
+            f"(programs {engine.runner.levels()}, bucket {engine.runner.buckets})")
+        out["full"] = serve_path("full", engine, images, counters, timeout)
+    if sum(out["full"]["counts"]) == 0:
+        raise AssertionError("the full path returned no detections")
+
+    prop_cfg = apply_overrides(base, ["model.rpn.nms_impl=pallas"])
+    with build_engine(prop_cfg, variables, batch_size=1, device=dev, mode="proposals") as engine:
+        out["proposals"] = serve_path("proposals", engine, images[:3], counters, timeout)
+    return out
+
+
+def reference_phase(dev, seed: int) -> None:
+    """Phase 5, a small input (tiny_synthetic, float32): the kernel path
+    and the plain torch path on the card must return identical detections
+    (every kernel is bitwise equal to its plain version in float32); the
+    CPU's plain path is shown beside them."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.evalutil.postprocess import match_fraction
+    from mx_rcnn_tpu_torch.serve.engine import DetectorRunner
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    base = get_config("tiny_synthetic")
+    variables = init_variables(base.model, torch.Generator().manual_seed(seed + 1))
+    variables["box_head.cls_score.bias"][1:3] = 3.0
+    rng = np.random.RandomState(seed + 1)
+    images = [rng.uniform(0, 255, (hh, ww, 3)).astype(np.float32)
+              for hh, ww in ((128, 128), (100, 128))]
+    runs = {
+        "kernels": (["serve.fused_middle=on"], dev),
+        "plain": (["serve.fused_middle=off", "model.rcnn.roi_align_impl=xla"], dev),
+        "cpu": (["serve.fused_middle=on"], torch.device("cpu")),
+    }
+    results = {}
+    for name, (overrides, d) in runs.items():
+        runner = DetectorRunner(apply_overrides(base, overrides), variables, batch_size=2,
+                                device=d, with_proposals=False)
+        runner.warmup()
+        results[name] = runner.run("full", runner.buckets[0], images)
+    for i, (kern, plain, cpu) in enumerate(zip(results["kernels"], results["plain"],
+                                               results["cpu"])):
+        same = all(np.array_equal(kern[k], plain[k]) for k in ("boxes", "scores", "classes"))
+        log(f"[reference] image {i}: {len(kern['scores'])} detections through the kernels, "
+            f"{len(plain['scores'])} through the plain path, identical={same}; CPU "
+            f"{len(cpu['scores'])}, matched {match_fraction(cpu, kern):.3f} (shown, not held: "
+            "near-tied random-weight scores reorder under the CPU's conv sums)")
+        if not same:
+            raise AssertionError("the kernel path and the plain path disagree")
+
+
+# The kernels of the main paths: source, the TPU kernel it replaces, and
+# the serving path that launches it.  (``roi_align_f32`` is checked as
+# well, but the serving path runs bf16, so it is no entry of its own.)
+KERNELS = {
+    "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu",
+                  "mx_rcnn_tpu/ops/pallas/roi_align.py:393", "full"),
+    "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
+                     "mx_rcnn_tpu/ops/pallas/middle.py:145", "full"),
+    "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75", "proposals"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="tiny shapes on the CPU through the plain versions; never prints ok")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    if not args.cpu_rehearsal and not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import mx_rcnn_tpu_torch  # noqa: F401
+    except ImportError as e:
+        log(f"chip_smoke: the port is not here ({e}); run from the repository root")
+        return 3
+    from mx_rcnn_tpu_torch.ops.cuda import _build
+
+    dev = torch.device("cpu" if args.cpu_rehearsal else "cuda")
+    card = "cpu rehearsal" if args.cpu_rehearsal else card_line()
+    log(f"[card] {card}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    if not args.cpu_rehearsal:
+        t0 = time.perf_counter()
+        built = _build.build_all()
+        log(f"[build] {time.perf_counter() - t0:.2f} s for {sorted(built)} "
+            f"(per source: { {k: round(v['seconds'], 2) for k, v in built.items()} })")
+        for name, info in built.items():
+            for line in info["log"].splitlines():
+                if "Used" in line or "spill" in line:
+                    log(f"[ptxas:{name}] {line.strip()}")
+
+    kernels = kernel_phase(dev, args.cpu_rehearsal, args.seed)
+    for name, k in kernels.items():
+        log(f"[kernel:{name}] {k['shape']}: match={k['match']} max_abs_err={k['max_abs_err']:.3g} "
+            f"ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} bound_ms={k['bound'][0]:.4f} "
+            f"({k['bound'][1]})")
+    serving = serving_phase(dev, args.cpu_rehearsal, args.seed)
+    if not args.cpu_rehearsal:
+        reference_phase(dev, args.seed)
+
+    line = []
+    for name, (source, replaces, path) in KERNELS.items():
+        k = kernels[name]
+        line.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": serving[path]["launches"][name],
+            "match": k["match"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+            "library_ms": None, "shape": k["shape"],
+        })
+    failed = [name for name, k in kernels.items() if not k["match"]]
+    if not args.cpu_rehearsal:
+        failed += [f"{k['name']} never launched" for k in line if k["launches"] <= 0]
+    log(f"[card] {card}")
+    log(json.dumps({"kernels": line}))
+    if failed:
+        log(f"chip_smoke: FAILED: {failed}")
+        return 1
+    if args.cpu_rehearsal:
+        log("chip_smoke: cpu rehearsal passed (no device result)")
+        return 0
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,216 @@
+"""Immutable configuration for the PyTorch port.
+
+A copy of the subset of ``mx_rcnn_tpu/config.py`` that the serving path
+reads, with the same field names and defaults, so a ``--set``-style
+override string means the same thing to both packages.  Fields the port
+does not read (training, data loading, TPU layout rewrites such as
+``stem_s2d``/``c2_pad``/``packed_head``, the observability and fleet
+planes) are left out; the port always executes the canonical forms.
+
+Two backend knobs keep their JAX-side values so a config reads the same in
+both packages: ``"pallas"`` selects the port's hand-written CUDA kernel
+(the replacement of the Pallas kernel of that name), ``"xla"`` the plain
+PyTorch path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+
+@dataclass(frozen=True)
+class AnchorConfig:
+    scales: tuple[float, ...] = (8.0, 16.0, 32.0)
+    ratios: tuple[float, ...] = (0.5, 1.0, 2.0)
+
+    def num_anchors(self) -> int:
+        return len(self.scales) * len(self.ratios)
+
+
+@dataclass(frozen=True)
+class BackboneConfig:
+    name: str = "resnet50"  # resnet50 | resnet101
+    norm: str = "frozen_bn"
+    # Compute dtype for conv/matmul (params stay float32).
+    dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class FPNConfig:
+    enabled: bool = True
+    channels: int = 256
+    min_level: int = 2
+    max_level: int = 6  # P6 by stride-2 subsampling of P5 (RPN only)
+
+
+@dataclass(frozen=True)
+class RPNConfig:
+    channels: int = 256
+    test_pre_nms_top_n: int = 1000
+    test_post_nms_top_n: int = 1000
+    nms_threshold: float = 0.7
+    min_size: float = 0.0
+    # 0 = iterate the plain NMS fixed point to convergence (exact).
+    nms_sweep_cap: int = 0
+    # Proposal keep-mask backend: "xla" (plain torch fixed point) or
+    # "pallas" (the CUDA NMS kernel, ops/cuda/nms.py).
+    nms_impl: str = "xla"
+    # decode -> clip -> snap -> NMS as one CUDA kernel (ops/cuda/middle.py).
+    fused_middle: bool = False
+
+
+@dataclass(frozen=True)
+class RCNNConfig:
+    bbox_weights: tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
+    pooled_size: int = 7
+    sampling_ratio: int = 2
+    hidden_dim: int = 1024
+    class_agnostic: bool = False
+    # "pallas" = the CUDA ROIAlign kernel (ops/cuda/roi_align.py);
+    # "xla" = the plain torch gather.
+    roi_align_impl: str = "pallas"
+
+
+@dataclass(frozen=True)
+class TestConfig:
+    score_threshold: float = 0.05
+    nms_threshold: float = 0.5
+    max_detections: int = 100
+    # Only "fused" (global top-K + one class-offset NMS) is ported;
+    # "per_class" raises NotImplementedError.
+    nms_mode: str = "fused"
+    fused_top_k: int = 1000
+    nms_sweep_cap: int = 0
+
+
+@dataclass(frozen=True)
+class PrecisionConfig:
+    policy: str = "mixed"  # mixed | widen | float32
+    accum: str = "float32"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    num_classes: int = 81  # includes background at index 0
+    backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    fpn: FPNConfig = field(default_factory=FPNConfig)
+    anchors: AnchorConfig = field(default_factory=AnchorConfig)
+    rpn: RPNConfig = field(default_factory=RPNConfig)
+    rcnn: RCNNConfig = field(default_factory=RCNNConfig)
+    test: TestConfig = field(default_factory=TestConfig)
+    precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    # Static landscape canvas (H, W); 800x1344 holds every 800-short /
+    # 1333-max resize with FPN stride-32 divisibility.
+    image_size: tuple[int, int] = (800, 1344)
+    short_side: int = 800
+    max_side: int = 1333
+    max_gt_boxes: int = 100
+    pixel_mean: tuple[float, float, float] = (123.675, 116.28, 103.53)
+    pixel_std: tuple[float, float, float] = (58.395, 57.12, 57.375)
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    batch_size: int = 1
+    # "inherit" keeps model.rpn as-is; "on" forces fused_middle=True and
+    # nms_impl="pallas" for every serving program; "off" forces the plain
+    # chain.
+    fused_middle: str = "inherit"
+
+
+@dataclass(frozen=True)
+class Config:
+    name: str = "faster_rcnn_r50_fpn_coco"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+
+
+def _fpn_model(num_classes: int, backbone: str) -> ModelConfig:
+    return ModelConfig(
+        num_classes=num_classes,
+        backbone=BackboneConfig(name=backbone),
+        fpn=FPNConfig(enabled=True),
+        anchors=AnchorConfig(scales=(8.0,)),
+    )
+
+
+def _r50_fpn_coco() -> Config:
+    return Config(name="r50_fpn_coco", model=_fpn_model(81, "resnet50"))
+
+
+def _tiny_synthetic() -> Config:
+    m = _fpn_model(5, "resnet50")
+    return Config(
+        name="tiny_synthetic",
+        model=dataclasses.replace(
+            m,
+            backbone=dataclasses.replace(m.backbone, dtype="float32"),
+            rpn=RPNConfig(test_pre_nms_top_n=200, test_post_nms_top_n=64),
+            rcnn=RCNNConfig(hidden_dim=128),
+        ),
+        data=DataConfig(
+            image_size=(128, 128), short_side=128, max_side=128, max_gt_boxes=8
+        ),
+    )
+
+
+_PRESETS = {"r50_fpn_coco": _r50_fpn_coco, "tiny_synthetic": _tiny_synthetic}
+
+
+def available_configs() -> list[str]:
+    return sorted(_PRESETS)
+
+
+def get_config(name: str, **overrides: Any) -> Config:
+    """Build a preset config; kwargs replace top-level Config fields."""
+    if name not in _PRESETS:
+        raise KeyError(f"unknown config {name!r}; available: {available_configs()}")
+    cfg = _PRESETS[name]()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def _coerce(text: str, current: Any) -> Any:
+    """Parse ``text`` to the type of ``current`` (the existing field value)."""
+    if isinstance(current, bool):
+        if text.lower() in ("1", "true", "yes"):
+            return True
+        if text.lower() in ("0", "false", "no"):
+            return False
+        raise ValueError(f"expected bool, got {text!r}")
+    if isinstance(current, tuple):
+        parts = [p for p in text.replace("(", "").replace(")", "").split(",") if p]
+        elem = current[0] if current else float("nan")
+        return tuple(type(elem)(p) if current else float(p) for p in parts)
+    if isinstance(current, int):
+        return int(text)
+    if isinstance(current, float):
+        return float(text)
+    return text
+
+
+def apply_overrides(cfg: Config, assignments: list[str]) -> Config:
+    """Apply ``dotted.path=value`` overrides to a frozen config tree,
+    rebuilding the dataclass spine from the leaf up."""
+    for item in assignments:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} is not of the form key.path=value")
+        path, text = item.split("=", 1)
+        keys = path.strip().split(".")
+        nodes = [cfg]
+        for k in keys[:-1]:
+            nodes.append(getattr(nodes[-1], k))
+        leaf = getattr(nodes[-1], keys[-1])
+        if dataclasses.is_dataclass(leaf):
+            raise ValueError(f"{path} is a config section, not a field")
+        new_val = _coerce(text.strip(), leaf)
+        for node, k in zip(reversed(nodes), reversed(keys)):
+            new_val = dataclasses.replace(node, **{k: new_val})
+        cfg = new_val
+    return cfg

@@ -1,0 +1,17 @@
+"""The Batch contract between the input side and the detection graph
+(copy of ``mx_rcnn_tpu/data/batch.py``).  Fields are torch tensors on the
+device the graph runs on; serving fills only ``images`` and ``image_hw``."""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+
+class Batch(NamedTuple):
+    # (B, H, W, 3): uint8 raw letterboxed pixels (normalized in-graph by
+    # detection/graph.py::prep_images) or float32 already normalized.
+    images: Any
+    image_hw: Any     # (B, 2) float32 true (unpadded) height, width
+    gt_boxes: Optional[Any] = None    # (B, G, 4)
+    gt_classes: Optional[Any] = None  # (B, G) int32, 0 = background/padding
+    gt_valid: Optional[Any] = None    # (B, G) bool

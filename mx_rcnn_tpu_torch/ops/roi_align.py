@@ -1,0 +1,149 @@
+"""Multi-level FPN ROIAlign in plain torch (port of
+``mx_rcnn_tpu/ops/roi_align.py``).
+
+:func:`multilevel_roi_align` is the oracle: the flattened-pyramid gather
+of the JAX XLA path, with the batch written out where JAX vmaps.  It is
+the plain version of the CUDA kernel B1 (``ops/cuda/roi_align.py``) and
+the CPU path of ``rcnn.roi_align_impl="pallas"``.
+
+Semantics (Detectron ROIAlign): each of the S x S bins averages
+``sampling_ratio**2`` bilinear samples; samples outside (-1, H) x (-1, W)
+contribute zero, samples inside clamp to the cell range.  Interpolation
+and accumulation run in float32, with one cast back to the feature dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Bound on a roi's extent in feature cells at its assigned level.  Equals
+# the JAX Pallas kernel's window - 10 (POOL_WINDOW = 48), so both packages
+# assign every roi to the same level.
+MAX_EXTENT_CELLS = 38
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded once on every device.  For a Python-number
+    divisor, torch's CUDA division multiplies by the rounded reciprocal,
+    which can land one ulp away from the CPU's (and JAX's) quotient."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def fpn_level_assignment(
+    rois: torch.Tensor,
+    min_level: int = 2,
+    max_level: int = 5,
+    canonical_scale: float = 224.0,
+    canonical_level: int = 4,
+    max_extent_cells: int | None = MAX_EXTENT_CELLS,
+) -> torch.Tensor:
+    """FPN eq. 1, k = k0 + floor(log2(sqrt(area) / 224)), clamped, then
+    raised until the roi's extent fits ``max_extent_cells``.  rois
+    (..., 4) -> int32 levels (...)."""
+    w = torch.clamp(rois[..., 2] - rois[..., 0], min=1e-6)
+    h = torch.clamp(rois[..., 3] - rois[..., 1], min=1e-6)
+    k = canonical_level + torch.log2(true_div(torch.sqrt(w * h), canonical_scale))
+    k = torch.floor(k).to(torch.int32)
+    if max_extent_cells is not None:
+        extent = torch.maximum(w, h)
+        k_fit = torch.ceil(torch.log2(true_div(extent, max_extent_cells))).to(torch.int32)
+        k = torch.maximum(k, k_fit)
+    return torch.clamp(k, min_level, max_level)
+
+
+def multilevel_roi_align(
+    feature_pyramid: dict[int, torch.Tensor],
+    rois: torch.Tensor,
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+    max_extent_cells: int | None = MAX_EXTENT_CELLS,
+) -> torch.Tensor:
+    """pyramid {level: (B, H_l, W_l, C)} (stride 2**level, consecutive
+    levels), rois (B, R, 4) -> (B, R, S, S, C) in the features' dtype."""
+    levels = sorted(feature_pyramid)
+    b, r = rois.shape[:2]
+    c = feature_pyramid[levels[0]].shape[-1]
+    flat = torch.cat(
+        [feature_pyramid[l].reshape(b, -1, c) for l in levels], dim=1
+    )                                                     # (B, sum HW, C)
+    dev = rois.device
+    hs, ws, bases, off = [], [], [], 0
+    for l in levels:
+        _, h, w, _ = feature_pyramid[l].shape
+        hs.append(h)
+        ws.append(w)
+        bases.append(off)
+        off += h * w
+    hs = torch.tensor(hs, dtype=torch.float32, device=dev)
+    ws_f = torch.tensor(ws, dtype=torch.float32, device=dev)
+    ws_i = torch.tensor(ws, dtype=torch.int64, device=dev)
+    bases = torch.tensor(bases, dtype=torch.int64, device=dev)
+
+    assignment = fpn_level_assignment(
+        rois, min_level=levels[0], max_level=levels[-1],
+        max_extent_cells=max_extent_cells,
+    )                                                     # (B, R)
+    li = (assignment - levels[0]).long()
+    scale = 2.0 ** (-assignment.to(torch.float32))
+    h_r, w_r, wi_r, base_r = hs[li], ws_f[li], ws_i[li], bases[li]
+
+    scaled = rois * scale[..., None]
+    x1, y1 = scaled[..., 0], scaled[..., 1]
+    rw = torch.clamp(scaled[..., 2] - x1, min=1.0)
+    rh = torch.clamp(scaled[..., 3] - y1, min=1.0)
+    bin_w = true_div(rw, output_size)
+    bin_h = true_div(rh, output_size)
+    bins = torch.arange(output_size, dtype=torch.float32, device=dev)
+
+    out = torch.zeros((b, r, output_size, output_size, c), dtype=torch.float32, device=dev)
+    for iy in range(sampling_ratio):
+        fy = (iy + 0.5) / sampling_ratio
+        sy = y1[..., None] + (bins + fy) * bin_h[..., None]       # (B, R, S)
+        for ix in range(sampling_ratio):
+            fx = (ix + 0.5) / sampling_ratio
+            sx = x1[..., None] + (bins + fx) * bin_w[..., None]
+            out = out + _bilinear_gather_flat(flat, h_r, w_r, wi_r, base_r, sy, sx)
+    return true_div(out, sampling_ratio * sampling_ratio).to(flat.dtype)
+
+
+def _bilinear_gather_flat(flat, h_r, w_r, wi_r, base_r, sy, sx):
+    """Bilinear samples at (sy (B,R,S), sx (B,R,S)) from the flattened
+    pyramid (B, N, C) with per-roi bounds, pitch and base -> (B,R,S,S,C)."""
+    inside = (
+        (sy[..., :, None] > -1.0)
+        & (sy[..., :, None] < h_r[..., None, None])
+        & (sx[..., None, :] > -1.0)
+        & (sx[..., None, :] < w_r[..., None, None])
+    )                                                     # (B, R, S, S)
+    y = torch.minimum(torch.clamp(sy, min=0.0), h_r[..., None] - 1)
+    x = torch.minimum(torch.clamp(sx, min=0.0), w_r[..., None] - 1)
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
+    ly = y - y0
+    lx = x - x0
+    y0i = y0.long()
+    x0i = x0.long()
+    y1i = torch.minimum(y0i + 1, h_r[..., None].long() - 1)
+    x1i = torch.minimum(x0i + 1, w_r[..., None].long() - 1)
+    b, n, c = flat.shape
+
+    def gather(yi, xi):
+        idx = (
+            base_r[..., None, None]
+            + yi[..., :, None] * wi_r[..., None, None]
+            + xi[..., None, :]
+        )                                                 # (B, R, S, S)
+        g = torch.gather(flat, 1, idx.reshape(b, -1, 1).expand(b, -1, c))
+        return g.reshape(*idx.shape, c)
+
+    wy0 = (1.0 - ly)[..., :, None, None]
+    wy1 = ly[..., :, None, None]
+    wx0 = (1.0 - lx)[..., None, :, None]
+    wx1 = lx[..., None, :, None]
+    val = (
+        gather(y0i, x0i) * wy0 * wx0
+        + gather(y0i, x1i) * wy0 * wx1
+        + gather(y1i, x0i) * wy1 * wx0
+        + gather(y1i, x1i) * wy1 * wx1
+    )
+    return val * inside[..., None]

@@ -1,0 +1,121 @@
+"""The port's CUDA kernels against their plain torch versions on the card,
+at small shapes.  Marked ``gpu``; each test takes the ``cuda`` fixture,
+which skips when no card is present (decided when the test runs, never at
+import, so every worker collects the same tests).  On the card:
+
+    python -m pytest tests/test_torch_kernels.py -m gpu
+
+B3 (fused middle) and B4 (NMS) are bitwise; B1 (ROIAlign) is bitwise in
+float32 and within one bf16 ulp in bfloat16 (it sums in the plain
+version's order, and the build keeps multiplies and adds apart).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from mx_rcnn_tpu_torch.geometry import snap
+from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels, fused_middle_levels_plain
+from mx_rcnn_tpu_torch.ops.cuda.nms import (
+    nms_keep_sorted_cuda,
+    nms_keep_sorted_plain,
+    nms_mask_cuda,
+)
+from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+    multilevel_roi_align_cuda,
+    multilevel_roi_align_plain,
+)
+from mx_rcnn_tpu_torch.ops.nms import nms_mask
+from mx_rcnn_tpu_torch.ops.topk import top_k
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _boxes(rng, shape, canvas=400.0):
+    xy = rng.uniform(0, canvas, (*shape, 2))
+    wh = rng.uniform(4, 90, (*shape, 2))
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 700])
+def test_nms_kernel_bitwise(cuda, n):
+    rng = np.random.RandomState(n)
+    b = torch.tensor(_boxes(rng, (3, n)), device=cuda)
+    v = torch.tensor(rng.rand(3, n) > 0.1, device=cuda)
+    before = nms_mask_cuda.launches
+    got = nms_keep_sorted_cuda(b, v, 0.5)
+    torch.cuda.synchronize()
+    assert nms_mask_cuda.launches == before + 1
+    assert torch.equal(got, nms_keep_sorted_plain(b, v, 0.5))
+    s = torch.tensor(np.round(rng.rand(3, n) * 8) / 8, dtype=torch.float32, device=cuda)
+    assert torch.equal(nms_mask_cuda(b, s, 0.6, v), nms_mask(b, s, 0.6, v))
+
+
+@pytest.mark.parametrize("k,min_size", [(16, 0.0), (300, 0.0), (1000, 8.0)])
+def test_fused_middle_kernel_bitwise(cuda, k, min_size):
+    rng = np.random.RandomState(k)
+    B, L, A = 2, 3, max(k, 1200)
+    anchors = torch.tensor(_boxes(rng, (B, L, A)), device=cuda)
+    deltas = torch.tensor(rng.randn(B, L, A, 4) * 0.3, dtype=torch.float32, device=cuda)
+    scores = snap(torch.tensor(np.round(rng.rand(B, L, A) * 20) / 20, dtype=torch.float32,
+                               device=cuda))
+    ts, ti = top_k(scores, k)
+    idx = ti[..., None].expand(B, L, k, 4)
+    an, dl = torch.gather(anchors, 2, idx), torch.gather(deltas, 2, idx)
+    ts[:, -1, k // 2:] = -torch.inf
+    hw = torch.tensor([[300.0, 420.0], [400.0, 250.0]], device=cuda)
+    before = fused_middle_levels.launches
+    got = fused_middle_levels(an, dl, ts, hw, min_size, 0.7)
+    torch.cuda.synchronize()
+    assert fused_middle_levels.launches == before + 1
+    want = fused_middle_levels_plain(an, dl, ts, hw, min_size, 0.7)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel(cuda, dtype):
+    rng = np.random.RandomState(0)
+    pyr = {l: torch.tensor(rng.randn(2, 320 >> l, 448 >> l, 96), device=cuda).to(dtype)
+           for l in (2, 3, 4, 5)}
+    xy = rng.uniform(-10, 440, (2, 150, 2))
+    wh = rng.uniform(1, 300, (2, 150, 2))
+    rois = torch.tensor(np.concatenate([xy, xy + wh], -1), dtype=torch.float32, device=cuda)
+    before = multilevel_roi_align_cuda.launches
+    got = multilevel_roi_align_cuda(pyr, rois, 7, 2)
+    torch.cuda.synchronize()
+    assert multilevel_roi_align_cuda.launches == before + 1 and got.dtype == dtype
+    want = multilevel_roi_align_plain(pyr, rois, 7, 2).float()
+    diff = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+        assert bool((diff <= ulp).all())
+
+
+def test_wrappers_refuse_bad_inputs(cuda):
+    pyr = {l: torch.zeros(1, 64 >> l, 64 >> l, 8, device=cuda) for l in (2, 3, 4, 5)}
+    rois = torch.zeros(1, 4, 4, device=cuda)
+    with pytest.raises(TypeError):
+        multilevel_roi_align_cuda({l: f.half() for l, f in pyr.items()}, rois)
+    with pytest.raises(ValueError):
+        multilevel_roi_align_cuda({**pyr, 2: pyr[2].permute(0, 2, 1, 3)}, rois)
+    with pytest.raises(ValueError):
+        multilevel_roi_align_cuda({**pyr, 2: pyr[2].cpu()}, rois)
+    with pytest.raises(ValueError):
+        nms_keep_sorted_cuda(torch.zeros(2, 5, 4, device=cuda),
+                             torch.zeros(2, 6, dtype=torch.bool, device=cuda), 0.5)
+    with pytest.raises(TypeError):
+        fused_middle_levels(torch.zeros(1, 1, 4, 4, device=cuda, dtype=torch.float64),
+                            torch.zeros(1, 1, 4, 4, device=cuda),
+                            torch.zeros(1, 1, 4, device=cuda), torch.zeros(1, 2, device=cuda))
