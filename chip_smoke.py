@@ -13,7 +13,11 @@ when every phase passed):
 3. Hold each kernel against its plain torch version on the card at the
    serving shapes of ``r50_fpn_coco`` (800x1344 canvas, batch 2): B1
    ROIAlign in bf16 (within 1 bf16 ulp) and f32 (atol 1e-5), B3 fused
-   middle and B4 NMS bitwise; time both with CUDA events after a warm-up.
+   middle and B4 NMS bitwise; and at its train shapes (512 rois per image
+   sampled as the train step samples them): B2 ROIAlign backward in bf16
+   (within 1 bf16 ulp of the plain float32 sum, plus the f32 tolerance)
+   and f32 (within 1e-5 of the largest gradient of |g|), two launches
+   bitwise equal.  Time both with CUDA events after a warm-up.
 4. Serve ``r50_fpn_coco`` at full width with random weights from a seed:
    an engine with ``serve.fused_middle=on`` and batch 2 (the ``full``
    program: B1 + B3), and one with ``rpn.nms_impl=pallas`` (the
@@ -21,10 +25,23 @@ when every phase passed):
    to 0 just before it and read just after; every kernel of a path must
    have launched.  Every response must be finite with boxes inside its
    image, and the full path must return detections.
-5. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
+5. Train ``r50_fpn_coco`` at full width (``model.rpn.loss_impl=compact``,
+   the mixed bf16 policy, batch 2, synthetic uint8 images on the 800x1344
+   canvas, random weights from the seed) for 5 steps through
+   ``train/loop.py::train``: every loss finite and ``nonfinite`` 0,
+   every trainable parameter moved, frozen parameters and FrozenBN buffers
+   bitwise unchanged, B1 and B2 launched in every step.  Seconds per step
+   after the first (without and with the batch assembly) and peak memory
+   are printed.
+6. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
-   detections; the CPU's are shown beside them.
-6. Print the card's line, the ``kernels`` line and, last,
+   detections, the CPU's shown beside them; and one train step through
+   the kernels (B1 forward, B2 backward) and through the plain path
+   (``roi_align_impl=xla``) gives the same loss and metrics within 1e-6
+   relative (B1 is bitwise in f32) and gradients within the CPU parity
+   tests' tolerances (backbone 5e-3 by norm, the rest 1e-5 of the largest
+   value): B2 and autograd's scatter sum in different orders.
+7. Print the card's line, the ``kernels`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -217,6 +234,85 @@ def kernel_phase(dev: torch.device, rehearsal: bool, seed: int) -> dict:
     return out
 
 
+def synthetic_batch(cfg, dev, seed: int):
+    """A batch-2 uint8 train batch of the synthetic set on ``cfg``'s canvas."""
+    from mx_rcnn_tpu_torch.data.datasets import SyntheticDataset
+    from mx_rcnn_tpu_torch.data.loader import assemble
+
+    ds = SyntheticDataset(image_hw=tuple(cfg.data.image_size),
+                          num_classes=cfg.model.num_classes, seed=seed)
+    return assemble([ds.record(0), ds.record(1)], cfg.data, dev)
+
+
+def backward_phase(dev, rehearsal: bool, seed: int) -> dict:
+    """Phase 3, B2: the ROIAlign backward against its plain version at the
+    train shapes, on rois sampled as the train step samples them."""
+    from mx_rcnn_tpu_torch.config import get_config
+    from mx_rcnn_tpu_torch.detection.graph import _slice_levels, level_anchors
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_bwd_plain,
+        roi_level_index,
+    )
+    from mx_rcnn_tpu_torch.ops.proposals import generate_fpn_proposals
+    from mx_rcnn_tpu_torch.ops.sampling import sample_rois
+
+    cfg = get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco")
+    rpn, rc = cfg.model.rpn, cfg.model.rcnn
+    (h, w), c = cfg.data.image_size, (32 if rehearsal else cfg.model.fpn.channels)
+    g = torch.Generator().manual_seed(seed + 2)
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    batch = synthetic_batch(cfg, dev, seed)
+    b = batch.images.shape[0]
+    feats = {l: torch.empty((b, h >> l, w >> l, 1), device=dev) for l in range(2, 7)}
+    anchors = level_anchors(cfg.model, feats)
+    levels = sorted(anchors)
+    n_anchors = sum(a.shape[0] for a in anchors.values())
+    scores = torch.sigmoid(0.5 * torch.randn((b, n_anchors), generator=g)).to(dev)
+    deltas = (0.2 * torch.randn((b, n_anchors, 4), generator=g)).to(dev)
+    props = generate_fpn_proposals(
+        *_slice_levels(levels, anchors, scores, deltas), batch.image_hw,
+        rpn.train_pre_nms_top_n, rpn.train_post_nms_top_n, rpn.nms_threshold, rpn.min_size)
+    n = props.rois.shape[1] + batch.gt_boxes.shape[1]
+    fg_draw, bg_draw = torch.rand((2, b, n), generator=g).to(dev)
+    rois = sample_rois(props.rois, props.valid, batch.gt_boxes, batch.gt_classes, batch.gt_valid,
+                       fg_draw, bg_draw, batch_size=rc.roi_batch_size,
+                       fg_fraction=rc.fg_fraction).rois.contiguous()
+    level_idx = roi_level_index(rois, (2, 3, 4, 5))
+    shapes = {l: (h >> l, w >> l) for l in (2, 3, 4, 5)}
+    s, sr = rc.pooled_size, rc.sampling_ratio
+    cot = torch.randn((b, rois.shape[1], s, s, c), generator=g).to(dev)
+    want = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, level_idx, cot, sr)
+    scale = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, level_idx, cot.abs(), sr)
+    out = {}
+    for dt, name in ((torch.bfloat16, "roi_align_bwd"), (torch.float32, "roi_align_bwd_f32")):
+        gd = cot.to(dt)
+        args = (shapes, dt, rois, level_idx, gd, sr)
+        got = multilevel_roi_align_bwd_cuda(*args)
+        again = multilevel_roi_align_bwd_cuda(*args)
+        ref = want if dt == torch.float32 else multilevel_roi_align_bwd_plain(
+            shapes, torch.float32, rois, level_idx, gd.float(), sr)
+        same, deterministic, err = True, True, 0.0
+        for l in shapes:
+            diff = (got[l].float() - ref[l]).abs()
+            tol = 1e-5 * float(scale[l].max().clamp(min=1.0))
+            if dt == torch.bfloat16:
+                tol = bf16_ulp(ref[l]) + tol
+            same &= bool((diff <= tol).all())
+            deterministic &= torch.equal(got[l], again[l])
+            err = max(err, float(diff.max()))
+        taps = rois.shape[0] * rois.shape[1] * s * s * sr * sr * 4
+        out[name] = dict(
+            match=same and deterministic, deterministic=deterministic, max_abs_err=err,
+            ms=clock.ms(lambda: multilevel_roi_align_bwd_cuda(*args), iters),
+            plain_ms=clock.ms(lambda: multilevel_roi_align_bwd_plain(*args), plain_iters),
+            bound=bound(nbytes(gd, rois, level_idx, *got.values()), 3 * taps * c),
+            shape=f"B={b} R={rois.shape[1]} C={c} {str(dt).split('.')[-1]}",
+        )
+    return out
+
+
 def check_response(res: dict, height: int, width: int) -> None:
     boxes, scores = res["boxes"], res["scores"]
     if boxes.ndim != 2 or boxes.shape[1] != 4 or len(scores) != len(boxes):
@@ -326,12 +422,144 @@ def reference_phase(dev, seed: int) -> None:
             raise AssertionError("the kernel path and the plain path disagree")
 
 
+def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
+    """Phase 5: r50_fpn_coco trained at full width for ``steps`` steps
+    through ``train/loop.py::train``; the launch counts are set to 0 just
+    before and read after every step."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
+    )
+    from mx_rcnn_tpu_torch.train.loop import train
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    counters = {"roi_align": multilevel_roi_align_cuda,
+                "roi_align_bwd": multilevel_roi_align_bwd_cuda}
+    # r50_fpn_coco freezes the stem and stage 1; the tiny rehearsal is
+    # given the same freeze so that it has frozen parameters to check.
+    overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}"]
+    if rehearsal:
+        overrides.append("model.backbone.freeze_stages=2")
+    cfg = apply_overrides(get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco"),
+                          overrides)
+    variables = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+    steps_seen, launches = [], {k: 0 for k in counters}
+
+    def on_step(line: str) -> None:
+        m = json.loads(line)
+        per_step = {k: fn.launches for k, fn in counters.items()}
+        for k, fn in counters.items():
+            launches[k] += fn.launches
+            fn.launches = 0
+        steps_seen.append((time.perf_counter(), m, per_step))
+        log(f"[train] {line} launches {per_step}")
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state = train(cfg, steps=steps, device=dev, variables=variables, log=on_step)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+
+    bad = [i for i, (_, m, _) in enumerate(steps_seen)
+           if m["nonfinite"] != 0.0 or not all(np.isfinite(v) for v in m.values())]
+    if len(steps_seen) != steps or bad:
+        raise AssertionError(f"train: {len(steps_seen)} of {steps} steps, non-finite at {bad}")
+    if not rehearsal:
+        missing = [(i, k) for i, (_, _, per) in enumerate(steps_seen) for k, v in per.items()
+                   if v < 1]
+        if missing:
+            raise AssertionError(f"train: kernels not launched at (step, kernel) {missing}")
+    moved, frozen_same, n_frozen = 0, True, 0
+    for name, p in state.model.named_parameters():
+        start = variables[name].to(p.device)
+        if p.requires_grad:
+            moved += int(not torch.equal(p.detach(), start))
+        else:
+            n_frozen += 1
+            frozen_same &= torch.equal(p.detach(), start)
+    buffers_same = all(torch.equal(v, variables[k].to(v.device))
+                       for k, v in state.model.named_buffers())
+    n_train = sum(p.requires_grad for p in state.model.parameters())
+    # At the rehearsal's 128x128 no sampled anchor or roi reaches P4 or P5,
+    # so the biases of those two FPN outputs get no gradient.
+    need = n_train - 2 if rehearsal else n_train
+    if not (frozen_same and buffers_same and n_frozen > 0 and moved == need):
+        raise AssertionError(
+            f"train: frozen unchanged={frozen_same} ({n_frozen}), buffers unchanged="
+            f"{buffers_same}, trainable moved {moved} of {n_train}")
+    times = [t for t, _, _ in steps_seen]
+    wall = (times[-1] - times[0]) / (len(times) - 1)
+    per_step = float(np.mean([m["seconds"] for _, m, _ in steps_seen[1:]]))
+    log(f"[train] r50_fpn_coco{' (rehearsal: tiny)' if rehearsal else ''} batch "
+        f"{cfg.train.per_device_batch}, {steps} steps in {time.perf_counter() - t0:.2f} s "
+        f"(build included); after the first: {per_step:.4f} s a step, {wall:.4f} s a step "
+        f"with the batch assembly; peak memory {peak:.2f} GiB; "
+        f"loss {steps_seen[0][1]['loss']:.4f} -> {steps_seen[-1][1]['loss']:.4f}; "
+        f"frozen {n_frozen} parameters and all buffers unchanged, {moved} of {n_train} "
+        f"trainable moved; launches {launches}")
+    return {"launches": launches}
+
+
+def train_reference_phase(dev, seed: int) -> None:
+    """Phase 6, training: one tiny_synthetic float32 step through the
+    kernels and through the plain path, same weights, batch and draws."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
+    from mx_rcnn_tpu_torch.detection.graph import Draws, forward_train
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_bwd_cuda
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    base = get_config("tiny_synthetic")
+    variables = init_variables(base.model, torch.Generator().manual_seed(seed + 3))
+    batch = synthetic_batch(base, dev, seed + 3)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    n_anchors = sum(3 * (128 >> l) ** 2 for l in range(2, 7))
+    n_rows = base.model.rpn.train_post_nms_top_n + base.data.max_gt_boxes
+    draws = Draws(*(torch.rand((2, n), generator=g, device=dev)
+                    for n in (n_anchors, n_anchors, n_rows, n_rows)))
+    stats = (base.data.pixel_mean, base.data.pixel_std)
+    runs = {}
+    for name, over in (("kernels", []), ("plain", ["model.rcnn.roi_align_impl=xla"])):
+        model = TwoStageDetector(apply_overrides(base, over).model, device=dev)
+        model.load_state_dict(variables)
+        before = multilevel_roi_align_bwd_cuda.launches
+        total, metrics = forward_train(model, batch, draws, stats)
+        total.backward()
+        runs[name] = ({k: float(v.detach()) for k, v in metrics.items()},
+                      {n: p.grad for n, p in model.named_parameters()},
+                      multilevel_roi_align_bwd_cuda.launches - before)
+    (km, kg, kl), (pm, pg, pl) = runs["kernels"], runs["plain"]
+    metric_err = max(abs(km[k] - pm[k]) / max(abs(pm[k]), 1.0) for k in km)
+    worst, ok = 0.0, True
+    for n, a in pg.items():
+        d = kg[n] - a
+        if n.startswith("backbone."):
+            rel = float(d.norm() / a.norm().clamp(min=1e-12))
+            ok &= rel <= 5e-3
+        else:
+            rel = float(d.abs().max() / a.abs().max().clamp(min=1e-12))
+            ok &= rel <= 1e-5
+        worst = max(worst, rel)
+    log(f"[reference:train] tiny_synthetic f32: loss {km['loss']:.6f} (kernels) vs "
+        f"{pm['loss']:.6f} (plain), largest metric difference {metric_err:.3g} (<= 1e-6 "
+        f"relative); worst gradient "
+        f"difference {worst:.3g} (backbone by norm <= 5e-3, others by max <= 1e-5); "
+        f"B2 launches {kl} vs {pl}")
+    if metric_err > 1e-6 or not ok or kl != 1 or pl != 0:
+        raise AssertionError("the kernel train step and the plain train step disagree")
+
+
 # The kernels of the main paths: source, the TPU kernel it replaces, and
-# the serving path that launches it.  (``roi_align_f32`` is checked as
+# the path that launches it.  (``roi_align_f32`` is checked as
 # well, but the serving path runs bf16, so it is no entry of its own.)
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu",
                   "mx_rcnn_tpu/ops/pallas/roi_align.py:393", "full"),
+    "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
+                      "mx_rcnn_tpu/ops/pallas/roi_align.py:623", "train"),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
                      "mx_rcnn_tpu/ops/pallas/middle.py:145", "full"),
     "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75", "proposals"),
@@ -373,20 +601,23 @@ def main() -> int:
                     log(f"[ptxas:{name}] {line.strip()}")
 
     kernels = kernel_phase(dev, args.cpu_rehearsal, args.seed)
+    kernels.update(backward_phase(dev, args.cpu_rehearsal, args.seed))
     for name, k in kernels.items():
         log(f"[kernel:{name}] {k['shape']}: match={k['match']} max_abs_err={k['max_abs_err']:.3g} "
             f"ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} bound_ms={k['bound'][0]:.4f} "
             f"({k['bound'][1]})")
-    serving = serving_phase(dev, args.cpu_rehearsal, args.seed)
+    paths = serving_phase(dev, args.cpu_rehearsal, args.seed)
+    paths["train"] = train_phase(dev, args.cpu_rehearsal, args.seed)
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
+        train_reference_phase(dev, args.seed)
 
     line = []
     for name, (source, replaces, path) in KERNELS.items():
         k = kernels[name]
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serving[path]["launches"][name],
+            "launches": paths[path]["launches"][name],
             "match": k["match"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
             "library_ms": None, "shape": k["shape"],

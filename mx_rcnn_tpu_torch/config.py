@@ -1,11 +1,15 @@
 """Immutable configuration for the PyTorch port.
 
 A copy of the subset of ``mx_rcnn_tpu/config.py`` that the serving path
-reads, with the same field names and defaults, so a ``--set``-style
-override string means the same thing to both packages.  Fields the port
-does not read (training, data loading, TPU layout rewrites such as
-``stem_s2d``/``c2_pad``/``packed_head``, the observability and fleet
-planes) are left out; the port always executes the canonical forms.
+and the single-device train step read, with the same field names and
+defaults, so a ``--set``-style override string means the same thing to
+both packages.  Fields the port does not read (data sources, checkpoints,
+multi-chip layout, TPU layout rewrites such as ``stem_s2d``/``c2_pad``/
+``packed_head``/``fold_frozen_bn``, speed-only knobs such as
+``assign_block``/``topk_block``/``roi_block``/``topk_impl`` whose forms
+are bit-identical to the dense or stable ones the port computes, the
+observability and fleet planes) are left out; the port always executes
+the canonical forms.
 
 Two backend knobs keep their JAX-side values so a config reads the same in
 both packages: ``"pallas"`` selects the port's hand-written CUDA kernel
@@ -32,6 +36,9 @@ class AnchorConfig:
 @dataclass(frozen=True)
 class BackboneConfig:
     name: str = "resnet50"  # resnet50 | resnet101
+    # Stages to freeze, counted like the reference's fixed_param_prefix
+    # (conv1 + res2 frozen for ResNet): train/loop.py::FREEZE_PREFIXES.
+    freeze_stages: int = 2
     norm: str = "frozen_bn"
     # Compute dtype for conv/matmul (params stay float32).
     dtype: str = "bfloat16"
@@ -48,6 +55,14 @@ class FPNConfig:
 @dataclass(frozen=True)
 class RPNConfig:
     channels: int = 256
+    # Anchor labeling (ops/sampling.py::assign_anchors).
+    batch_size: int = 256
+    fg_fraction: float = 0.5
+    positive_iou: float = 0.7
+    negative_iou: float = 0.3
+    allowed_border: float = 0.0
+    train_pre_nms_top_n: int = 2000
+    train_post_nms_top_n: int = 1000
     test_pre_nms_top_n: int = 1000
     test_post_nms_top_n: int = 1000
     nms_threshold: float = 0.7
@@ -59,10 +74,20 @@ class RPNConfig:
     nms_impl: str = "xla"
     # decode -> clip -> snap -> NMS as one CUDA kernel (ops/cuda/middle.py).
     fused_middle: bool = False
+    loss_weight: float = 1.0
+    # RPN loss reduction: "dense" over the full (B, A) anchor axis with
+    # masks, "compact" over the Q sampled rows (AnchorTargets.sel_*).  The
+    # same terms; only the summation order differs.
+    loss_impl: str = "dense"
 
 
 @dataclass(frozen=True)
 class RCNNConfig:
+    roi_batch_size: int = 512
+    fg_fraction: float = 0.25
+    fg_iou: float = 0.5
+    bg_iou_hi: float = 0.5
+    bg_iou_lo: float = 0.0
     bbox_weights: tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
     pooled_size: int = 7
     sampling_ratio: int = 2
@@ -71,6 +96,10 @@ class RCNNConfig:
     # "pallas" = the CUDA ROIAlign kernel (ops/cuda/roi_align.py);
     # "xla" = the plain torch gather.
     roi_align_impl: str = "pallas"
+    loss_weight: float = 1.0
+    # Backward of the "pallas" forward: "pallas" = the CUDA ROIAlign
+    # backward (kernel B2), "xla" = autograd of the plain forward.
+    roi_align_bwd_impl: str = "pallas"
 
 
 @dataclass(frozen=True)
@@ -125,11 +154,38 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class ScheduleConfig:
+    """Warmup + MultiFactor decay.  ``decay_steps``/``total_steps`` are
+    denominated at a global batch of ``reference_batch`` images and
+    rescaled by train/loop.py::scale_schedule_steps; ``reference_batch=0``
+    keeps them absolute.  ``warmup_steps`` stays absolute."""
+
+    base_lr: float = 0.02
+    warmup_steps: int = 500
+    warmup_factor: float = 1.0 / 3.0
+    decay_steps: tuple[int, ...] = (60000, 80000)
+    factor: float = 0.1
+    total_steps: int = 90000
+    reference_batch: int = 16
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    per_device_batch: int = 1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    grad_clip: float = 35.0
+    schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
+    seed: int = 0
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "faster_rcnn_r50_fpn_coco"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def _fpn_model(num_classes: int, backbone: str) -> ModelConfig:
@@ -142,7 +198,8 @@ def _fpn_model(num_classes: int, backbone: str) -> ModelConfig:
 
 
 def _r50_fpn_coco() -> Config:
-    return Config(name="r50_fpn_coco", model=_fpn_model(81, "resnet50"))
+    return Config(name="r50_fpn_coco", model=_fpn_model(81, "resnet50"),
+                  train=TrainConfig(per_device_batch=2))
 
 
 def _tiny_synthetic() -> Config:
@@ -151,12 +208,17 @@ def _tiny_synthetic() -> Config:
         name="tiny_synthetic",
         model=dataclasses.replace(
             m,
-            backbone=dataclasses.replace(m.backbone, dtype="float32"),
-            rpn=RPNConfig(test_pre_nms_top_n=200, test_post_nms_top_n=64),
-            rcnn=RCNNConfig(hidden_dim=128),
+            backbone=dataclasses.replace(m.backbone, freeze_stages=0, dtype="float32"),
+            rpn=RPNConfig(batch_size=64, train_pre_nms_top_n=200, train_post_nms_top_n=64,
+                          test_pre_nms_top_n=200, test_post_nms_top_n=64),
+            rcnn=RCNNConfig(roi_batch_size=32, hidden_dim=128),
         ),
         data=DataConfig(
             image_size=(128, 128), short_side=128, max_side=128, max_gt_boxes=8
+        ),
+        train=TrainConfig(
+            schedule=ScheduleConfig(base_lr=0.01, warmup_steps=10, decay_steps=(400,),
+                                    total_steps=500, reference_batch=0),
         ),
     )
 

@@ -1,6 +1,8 @@
 """The Batch contract between the input side and the detection graph
 (copy of ``mx_rcnn_tpu/data/batch.py``).  Fields are torch tensors on the
-device the graph runs on; serving fills only ``images`` and ``image_hw``."""
+device the graph runs on; serving fills only ``images`` and ``image_hw``.
+The JAX batch's mask and external-proposal fields belong to parts not
+ported yet (Mask R-CNN, Fast R-CNN mode)."""
 
 from __future__ import annotations
 
@@ -15,3 +17,6 @@ class Batch(NamedTuple):
     gt_boxes: Optional[Any] = None    # (B, G, 4)
     gt_classes: Optional[Any] = None  # (B, G) int32, 0 = background/padding
     gt_valid: Optional[Any] = None    # (B, G) bool
+    # COCO crowd / VOC difficult regions: never fg, and anchors/rois covering
+    # them are excluded from bg sampling.  Disjoint from gt_valid slots.
+    gt_ignore: Optional[Any] = None   # (B, G) bool

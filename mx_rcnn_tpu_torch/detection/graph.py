@@ -1,13 +1,17 @@
-"""Inference computations of the two-stage detector (port of the inference
-half of ``mx_rcnn_tpu/detection/graph.py``).
+"""Train and inference computations of the two-stage detector (port of
+``mx_rcnn_tpu/detection/graph.py``).
 
 Every function takes the whole batch: where the JAX graph vmaps a
 per-image function, the batch axis is written out.  The model is a
 :class:`~mx_rcnn_tpu_torch.detection.detector.TwoStageDetector` holding its
-weights; call these under ``torch.inference_mode()``.
+weights; call the inference functions under ``torch.inference_mode()``.
+:func:`forward_train` returns the differentiable total loss; its random
+draws come in as :class:`Draws` or a ``torch.Generator``.  The mask
+branch and Fast R-CNN mode (external proposals) are not ported.
 
-Shape conventions: B = batch, A = anchors over levels, R = proposals per
-image, S = pooled size, C = classes including background 0.
+Shape conventions: B = batch, G = max gt boxes, A = anchors over levels,
+R = proposals per image, S = pooled size, C = classes including
+background 0.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mx_rcnn_tpu_torch.config import ModelConfig
 from mx_rcnn_tpu_torch.data.batch import Batch
@@ -26,10 +31,12 @@ from mx_rcnn_tpu_torch.geometry import (
     generate_base_anchors,
     shifted_anchors_np,
 )
-from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_cuda
+from mx_rcnn_tpu_torch.geometry.losses import masked_softmax_cross_entropy, weighted_smooth_l1
+from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_fast
 from mx_rcnn_tpu_torch.ops.nms import batched_nms
 from mx_rcnn_tpu_torch.ops.proposals import Proposals, generate_fpn_proposals
 from mx_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align
+from mx_rcnn_tpu_torch.ops.sampling import AnchorTargets, RoiSamples, assign_anchors, sample_rois
 from mx_rcnn_tpu_torch.ops.topk import top_k
 
 
@@ -75,14 +82,17 @@ def prep_images(images: torch.Tensor, pixel_stats=None) -> torch.Tensor:
     return (images.to(torch.float32) - mean) * inv_std
 
 
-def _propose_one(cfg: ModelConfig):
-    """The proposal function over per-level RPN outputs of the batch.
+def _propose_one(cfg: ModelConfig, train: bool = False):
+    """The proposal function over per-level RPN outputs of the batch, with
+    the train or test pre/post-NMS top-n.
 
     ``rpn.fused_middle`` selects the fused CUDA middle (kernel B3),
     ``rpn.nms_impl="pallas"`` the CUDA NMS kernel (B4) under the dense
     decode, ``"xla"`` the plain torch chain.  On CPU tensors the kernels'
     wrappers take their plain versions."""
     rpn = cfg.rpn
+    pre = rpn.train_pre_nms_top_n if train else rpn.test_pre_nms_top_n
+    post = rpn.train_post_nms_top_n if train else rpn.test_post_nms_top_n
     if rpn.nms_impl not in ("xla", "pallas"):
         raise ValueError(f"rpn.nms_impl must be 'xla' or 'pallas', got {rpn.nms_impl!r}")
 
@@ -91,8 +101,8 @@ def _propose_one(cfg: ModelConfig):
             raise NotImplementedError("single-level (C4) proposals are not ported")
         return generate_fpn_proposals(
             level_scores, level_deltas, level_anchor, image_hw,
-            pre_nms_top_n=rpn.test_pre_nms_top_n,
-            post_nms_top_n=rpn.test_post_nms_top_n,
+            pre_nms_top_n=pre,
+            post_nms_top_n=post,
             nms_threshold=rpn.nms_threshold, min_size=rpn.min_size,
             nms_sweep_cap=rpn.nms_sweep_cap, nms_impl=rpn.nms_impl,
             fused_middle=rpn.fused_middle,
@@ -117,16 +127,24 @@ def _slice_levels(levels, anchors, scores, deltas):
 
 def _pool_rois_impl(cfg: ModelConfig, feats, rois, pooled_size: int, roi_level_set):
     """ROIAlign over the batch: rois (B, R, 4) -> (B, R, S, S, C).
-    ``rcnn.roi_align_impl="pallas"`` takes CUDA kernel B1, ``"xla"`` the
-    plain gather."""
-    impl = cfg.rcnn.roi_align_impl
+
+    ``rcnn.roi_align_impl="pallas"`` takes CUDA kernel B1 inside the
+    autograd ``Function`` whose backward ``rcnn.roi_align_bwd_impl`` picks
+    (``"pallas"`` kernel B2, ``"xla"`` autograd of the plain forward), or
+    B1 alone when grad mode is off; ``"xla"`` the plain gather,
+    differentiated by autograd."""
+    impl, bwd = cfg.rcnn.roi_align_impl, cfg.rcnn.roi_align_bwd_impl
     if impl not in ("xla", "pallas"):
         raise ValueError(f"rcnn.roi_align_impl must be 'xla' or 'pallas', got {impl!r}")
+    if bwd not in ("xla", "pallas"):
+        raise ValueError(f"rcnn.roi_align_bwd_impl must be 'xla' or 'pallas', got {bwd!r}")
     roi_levels = {l: f for l, f in feats.items() if l in roi_level_set}
     if len(roi_levels) < 2:
         raise NotImplementedError("single-level (C4) ROIAlign is not ported")
-    pool = multilevel_roi_align_cuda if impl == "pallas" else multilevel_roi_align
-    return pool(roi_levels, rois, pooled_size, cfg.rcnn.sampling_ratio)
+    sr = cfg.rcnn.sampling_ratio
+    if impl == "xla":
+        return multilevel_roi_align(roi_levels, rois, pooled_size, sr)
+    return multilevel_roi_align_fast(roi_levels, rois, pooled_size, sr, bwd)
 
 
 def _propose_on_features(model, feats, batch: Batch) -> Proposals:
@@ -216,3 +234,170 @@ def _postprocess_one_fused(cfg: ModelConfig, rois, roi_valid, probs, deltas, ima
         torch.where(valid, torch.gather(cls, 1, out_i), 0).to(torch.int32),
         valid,
     )
+
+
+# ---------------------------------------------------------------------------
+# Training
+
+
+class Draws(NamedTuple):
+    """The uniform priorities in [0, 1) of one train step: ``assign_fg``
+    and ``assign_bg`` (B, A) for :func:`~mx_rcnn_tpu_torch.ops.sampling.
+    assign_anchors`, ``sample_fg`` and ``sample_bg`` (B, R + G) for
+    :func:`~mx_rcnn_tpu_torch.ops.sampling.sample_rois`."""
+
+    assign_fg: torch.Tensor
+    assign_bg: torch.Tensor
+    sample_fg: torch.Tensor
+    sample_bg: torch.Tensor
+
+
+def _uniform(draws, name: str, shape, device) -> torch.Tensor:
+    """``draws.<name>`` when given, else a fresh (shape) draw from the
+    generator ``draws``, in the fixed order the fields are asked for."""
+    if isinstance(draws, Draws):
+        return getattr(draws, name)
+    return torch.rand(shape, generator=draws, device=device)
+
+
+def _rpn_losses(rpn_logits, rpn_deltas, targets: AnchorTargets, loss_impl: str = "dense"):
+    """RPN objectness (sigmoid BCE over the sampled anchors) and box
+    (smooth-L1, sigma 3, fg anchors) losses, both normalized by the
+    sampled count, and the objectness accuracy.  ``"dense"`` reduces over
+    the full (B, A) anchor axis with masks, ``"compact"`` over the Q
+    sampled rows; the same terms in another summation order."""
+    if loss_impl == "compact":
+        return _rpn_losses_compact(rpn_logits, rpn_deltas, targets)
+    if loss_impl != "dense":
+        raise ValueError(f"rpn.loss_impl must be 'dense' or 'compact', got {loss_impl!r}")
+    rpn_logits = rpn_logits.to(torch.float32)
+    rpn_deltas = rpn_deltas.to(torch.float32)
+    valid = targets.valid_mask
+    is_fg = targets.labels == 1
+    n_valid = torch.clamp(valid.sum().to(torch.float32), min=1.0)
+    fgf = is_fg.to(torch.float32)
+    bce = -(fgf * F.logsigmoid(rpn_logits) + (1.0 - fgf) * F.logsigmoid(-rpn_logits))
+    cls_loss = torch.sum(bce * valid) / n_valid
+    box_loss = weighted_smooth_l1(
+        rpn_deltas, targets.bbox_targets,
+        inside_weight=targets.fg_mask[..., None].to(torch.float32),
+        sigma=3.0, normalizer=n_valid,
+    )
+    acc = (((rpn_logits > 0.0) == is_fg) & valid).sum().to(torch.float32) / n_valid
+    return cls_loss, box_loss, acc
+
+
+def _rpn_losses_compact(rpn_logits, rpn_deltas, targets: AnchorTargets):
+    idx = targets.sel_idx.long()                              # (B, Q)
+    take = targets.sel_take.to(torch.float32)
+    is_fg = targets.sel_fg
+    n_valid = torch.clamp(take.sum(), min=1.0)
+    logit_sel = torch.gather(rpn_logits, 1, idx).to(torch.float32)
+    fgf = is_fg.to(torch.float32)
+    bce = -(fgf * F.logsigmoid(logit_sel) + (1.0 - fgf) * F.logsigmoid(-logit_sel))
+    cls_loss = torch.sum(bce * take) / n_valid
+    idx4 = idx[..., None].expand(-1, -1, 4)
+    deltas_sel = torch.gather(rpn_deltas, 1, idx4).to(torch.float32)
+    targets_sel = torch.gather(targets.bbox_targets, 1, idx4)
+    box_loss = weighted_smooth_l1(deltas_sel, targets_sel, inside_weight=fgf[..., None],
+                                  sigma=3.0, normalizer=n_valid)
+    acc = (((logit_sel > 0.0) == is_fg).to(torch.float32) * take).sum() / n_valid
+    return cls_loss, box_loss, acc
+
+
+def _rcnn_losses(cls_logits, box_deltas, samples: RoiSamples, class_agnostic: bool):
+    """R-CNN softmax CE over the sampled rois and smooth-L1 (sigma 1) on
+    the fg rois' deltas of their class, both normalized by the sampled
+    count, and the classification accuracy.  cls_logits (N, C),
+    box_deltas (N, C or 1, 4) over N = B * roi_batch_size."""
+    cls_logits = cls_logits.to(torch.float32)
+    box_deltas = box_deltas.to(torch.float32)
+    labels = samples.labels.reshape(-1).long()
+    weights = samples.label_weights.reshape(-1)
+    fg = samples.fg_mask.reshape(-1)
+    targets = samples.bbox_targets.reshape(-1, 4)
+    n_valid = torch.clamp(weights.sum(), min=1.0)
+    cls_loss = masked_softmax_cross_entropy(cls_logits, labels, weights)
+    if class_agnostic:
+        sel = box_deltas[:, 0, :]
+    else:
+        idx = torch.clamp(labels, 0, box_deltas.shape[1] - 1)
+        sel = torch.gather(box_deltas, 1, idx[:, None, None].expand(-1, 1, 4))[:, 0, :]
+    box_loss = weighted_smooth_l1(sel, targets, inside_weight=fg[:, None].to(torch.float32),
+                                  sigma=1.0, normalizer=n_valid)
+    pred = torch.argmax(cls_logits, dim=-1)
+    acc = ((pred == labels).to(torch.float32) * weights).sum() / n_valid
+    return cls_loss, box_loss, acc
+
+
+def forward_train(model, batch: Batch, draws, pixel_stats=None):
+    """One training forward pass -> (total loss, metrics dict).
+
+    Differentiable with respect to the model's parameters.  ``draws`` is
+    a :class:`Draws` or a ``torch.Generator`` on the batch's device (the
+    four draws then come from it, in the order of :class:`Draws`'s
+    fields).  Proposals and sampled rois are detached: gradients reach the
+    RPN through its losses only.  ``pixel_stats``: (mean, std) for uint8
+    batches."""
+    cfg = model.cfg
+    for field in ("gt_masks", "ext_rois"):
+        if getattr(batch, field, None) is not None:
+            raise NotImplementedError(f"Batch.{field}: Mask R-CNN and Fast R-CNN mode "
+                                      "are not ported")
+    images = prep_images(batch.images, pixel_stats)
+    feats = model.features(images)
+    dev = images.device
+    b = images.shape[0]
+
+    rpn_out = model.rpn(feats)
+    anchors = level_anchors(cfg, feats)
+    levels = sorted(rpn_out)
+    logits_cat = torch.cat([rpn_out[l][0] for l in levels], dim=1)
+    deltas_cat = torch.cat([rpn_out[l][1] for l in levels], dim=1)
+    anchors_cat = torch.cat([anchors[l] for l in levels], dim=0)
+    a = anchors_cat.shape[0]
+
+    rpn = cfg.rpn
+    with torch.no_grad():
+        targets = assign_anchors(
+            anchors_cat, batch.gt_boxes, batch.gt_valid, batch.image_hw,
+            _uniform(draws, "assign_fg", (b, a), dev), _uniform(draws, "assign_bg", (b, a), dev),
+            batch_size=rpn.batch_size, fg_fraction=rpn.fg_fraction,
+            positive_iou=rpn.positive_iou, negative_iou=rpn.negative_iou,
+            allowed_border=rpn.allowed_border, gt_ignore=batch.gt_ignore,
+        )
+    rpn_cls, rpn_box, rpn_acc = _rpn_losses(logits_cat, deltas_cat, targets, rpn.loss_impl)
+
+    with torch.no_grad():
+        scores = torch.sigmoid(logits_cat.detach())
+        propose = _propose_one(cfg, train=True)
+        props = propose(*_slice_levels(levels, anchors, scores, deltas_cat.detach()),
+                        batch.image_hw)
+        n = props.rois.shape[1] + batch.gt_boxes.shape[1]
+        rc = cfg.rcnn
+        samples = sample_rois(
+            props.rois, props.valid, batch.gt_boxes, batch.gt_classes, batch.gt_valid,
+            _uniform(draws, "sample_fg", (b, n), dev), _uniform(draws, "sample_bg", (b, n), dev),
+            batch_size=rc.roi_batch_size, fg_fraction=rc.fg_fraction, fg_iou=rc.fg_iou,
+            bg_iou_hi=rc.bg_iou_hi, bg_iou_lo=rc.bg_iou_lo, bbox_weights=rc.bbox_weights,
+            gt_ignore=batch.gt_ignore,
+        )
+
+    pooled = _pool_rois_impl(cfg, feats, samples.rois.contiguous(), rc.pooled_size,
+                             model.roi_levels)
+    s = rc.pooled_size
+    cls_logits, box_deltas = model.box(pooled.reshape(-1, s, s, pooled.shape[-1]))
+    rcnn_cls, rcnn_box, rcnn_acc = _rcnn_losses(cls_logits, box_deltas, samples,
+                                                rc.class_agnostic)
+
+    total = rpn.loss_weight * (rpn_cls + rpn_box) + rc.loss_weight * (rcnn_cls + rcnn_box)
+    metrics = {
+        "RPNAcc": rpn_acc,
+        "RPNLogLoss": rpn_cls,
+        "RPNL1Loss": rpn_box,
+        "RCNNAcc": rcnn_acc,
+        "RCNNLogLoss": rcnn_cls,
+        "RCNNL1Loss": rcnn_box,
+        "loss": total,
+    }
+    return total, metrics

@@ -8,6 +8,8 @@ from mx_rcnn_tpu_torch.geometry.boxes import (
     area,
     clip_boxes,
     decode_boxes,
+    encode_boxes,
+    ioa_matrix,
     iou_matrix,
     snap,
     valid_box_mask,
@@ -19,7 +21,9 @@ __all__ = [
     "area",
     "clip_boxes",
     "decode_boxes",
+    "encode_boxes",
     "generate_base_anchors",
+    "ioa_matrix",
     "iou_matrix",
     "shifted_anchors_np",
     "snap",

@@ -48,6 +48,45 @@ def iou_matrix(boxes: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
     return torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
 
 
+def ioa_matrix(boxes: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Pairwise intersection over the area of ``boxes`` (the crowd/ignore
+    overlap measure): boxes (..., N, 4), query (..., K, 4) -> (..., N, K).
+    Zero-area ``boxes`` rows are 0."""
+    lt = torch.maximum(boxes[..., :, None, :2], query[..., None, :, :2])
+    rb = torch.minimum(boxes[..., :, None, 2:], query[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    a = area(boxes)[..., :, None]
+    pos = a > 0.0
+    return torch.where(pos, inter / torch.where(pos, a, 1.0), 0.0)
+
+
+def _center(boxes: torch.Tensor):
+    """(w, h, cx, cy) of boxes (..., 4)."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return w, h, boxes[..., 0] + 0.5 * w, boxes[..., 1] + 0.5 * h
+
+
+def encode_boxes(
+    boxes: torch.Tensor,
+    anchors: torch.Tensor,
+    weights: tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0),
+) -> torch.Tensor:
+    """Encode target ``boxes`` (..., 4) relative to ``anchors`` (..., 4) as
+    (dx, dy, dw, dh), each multiplied by its weight (1/std)."""
+    aw, ah, ax, ay = _center(anchors)
+    gw, gh, gx, gy = _center(boxes)
+    aw = torch.clamp(aw, min=1e-6)
+    ah = torch.clamp(ah, min=1e-6)
+    wx, wy, ww, wh_ = weights
+    dx = wx * (gx - ax) / aw
+    dy = wy * (gy - ay) / ah
+    dw = ww * torch.log(torch.clamp(gw, min=1e-6) / aw)
+    dh = wh_ * torch.log(torch.clamp(gh, min=1e-6) / ah)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def decode_boxes(
     deltas: torch.Tensor,
     anchors: torch.Tensor,

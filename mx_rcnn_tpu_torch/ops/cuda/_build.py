@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 )
 
 # The kernels the port builds, one source file each.
-KERNELS = ("roi_align", "middle", "nms")
+KERNELS = ("roi_align", "roi_align_bwd", "middle", "nms")
 
 
 class KernelError(RuntimeError):

@@ -1,16 +1,23 @@
-"""Multi-level ROIAlign forward: CUDA kernel B1 and its plain version.
+"""Multi-level ROIAlign: CUDA kernels B1 (forward) and B2 (backward),
+their plain versions, and the autograd ``Function`` that joins them.
 
-Replaces ``mx_rcnn_tpu/ops/pallas/roi_align.py::multilevel_roi_align_pallas``,
+B1 replaces ``mx_rcnn_tpu/ops/pallas/roi_align.py::multilevel_roi_align_pallas``,
 the kernel behind ``rcnn.roi_align_impl="pallas"``.  Batched contract:
 pyramid {level: (B, H_l, W_l, C)} (NHWC, consecutive levels), rois
 (B, R, 4) f32 in image coordinates -> (B, R, S, S, C) in the feature
 dtype (float32 or bfloat16).  The batch folds into one launch.
 
+B2 replaces ``multilevel_roi_align_bwd_pallas``, the backward behind
+``rcnn.roi_align_bwd_impl="pallas"``: the cotangent (B, R, S, S, C) ->
+one gradient per level (B, H_l, W_l, C), accumulated in f32 and cast once
+to the feature dtype, deterministic (``csrc/roi_align_bwd.cu``).
+
 Level assignment stays in torch ahead of the launch (the port's
-``fpn_level_assignment``, extent bound 38 cells); the kernel
-(``csrc/roi_align.cu``) pools each roi from its level.  The plain version
-is ``ops/roi_align.py::multilevel_roi_align``, taken only for CPU tensors.
-``multilevel_roi_align_cuda.launches`` counts kernel launches.
+``fpn_level_assignment``, extent bound 38 cells); :class:`MultilevelRoiAlign`
+assigns once in its forward and hands the same levels to B2.  The plain
+versions are ``ops/roi_align.py::multilevel_roi_align`` and
+``multilevel_roi_align_bwd``, taken only for CPU tensors.  Each kernel
+wrapper's ``.launches`` counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from mx_rcnn_tpu_torch.ops.roi_align import (
     MAX_EXTENT_CELLS,
     fpn_level_assignment,
     multilevel_roi_align,
+    multilevel_roi_align_bwd,
 )
 
 _MAX_LEVELS = 8
@@ -42,9 +50,36 @@ class _Pyramid(ctypes.Structure):
     ]
 
 
+class _GradPyramid(ctypes.Structure):
+    """Mirror of ``struct GradPyramid`` in csrc/roi_align_bwd.cu."""
+
+    _fields_ = [
+        ("ptr", ctypes.c_void_p * _MAX_LEVELS),
+        ("h", ctypes.c_int * _MAX_LEVELS),
+        ("w", ctypes.c_int * _MAX_LEVELS),
+        ("level", ctypes.c_int * _MAX_LEVELS),
+        ("tiles_x", ctypes.c_int * _MAX_LEVELS),
+        ("tile_start", ctypes.c_int * (_MAX_LEVELS + 1)),
+        ("num_levels", ctypes.c_int),
+    ]
+
+
 def multilevel_roi_align_plain(feature_pyramid, rois, output_size=7, sampling_ratio=2):
-    """The plain torch version of the kernel (the XLA oracle's port)."""
+    """The plain torch version of B1 (the XLA oracle's port)."""
     return multilevel_roi_align(feature_pyramid, rois, output_size, sampling_ratio)
+
+
+# The plain torch version of B2: the transpose of the plain forward, f32
+# accumulation (``index_add_``), one cast to the feature dtype.
+multilevel_roi_align_bwd_plain = multilevel_roi_align_bwd
+
+
+def roi_level_index(rois: torch.Tensor, levels) -> torch.Tensor:
+    """(B, R) int32 index of each roi's level into the sorted ``levels``."""
+    return (
+        fpn_level_assignment(rois, levels[0], levels[-1], max_extent_cells=MAX_EXTENT_CELLS)
+        - levels[0]
+    ).to(torch.int32).contiguous()
 
 
 def _check(feature_pyramid: dict[int, torch.Tensor], rois: torch.Tensor):
@@ -77,8 +112,11 @@ def multilevel_roi_align_cuda(
     rois: torch.Tensor,
     output_size: int = 7,
     sampling_ratio: int = 2,
+    level_idx: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Kernel B1 on CUDA tensors; the plain version on CPU tensors."""
+    """Kernel B1 on CUDA tensors; the plain version on CPU tensors.
+    ``level_idx`` (B, R) int32 from :func:`roi_level_index`, computed here
+    when not given."""
     if rois.device.type == "cpu":
         return multilevel_roi_align_plain(feature_pyramid, rois, output_size, sampling_ratio)
     if rois.device.type != "cuda":
@@ -87,10 +125,9 @@ def multilevel_roi_align_cuda(
     if not rois.is_contiguous():
         rois = rois.contiguous()
     r = rois.shape[1]
-    level_idx = (
-        fpn_level_assignment(rois, levels[0], levels[-1], max_extent_cells=MAX_EXTENT_CELLS)
-        - levels[0]
-    ).to(torch.int32).contiguous()
+    if level_idx is None:
+        level_idx = roi_level_index(rois, levels)
+    _check_level_idx(level_idx, rois)
     dtype = feature_pyramid[levels[0]].dtype
     out = torch.empty((b, r, output_size, output_size, c), dtype=dtype, device=rois.device)
 
@@ -113,3 +150,141 @@ def multilevel_roi_align_cuda(
 
 
 multilevel_roi_align_cuda.launches = 0
+
+
+def _check_level_idx(level_idx: torch.Tensor, rois: torch.Tensor) -> None:
+    if (level_idx.dtype != torch.int32 or level_idx.shape != rois.shape[:2]
+            or level_idx.device != rois.device or not level_idx.is_contiguous()):
+        raise ValueError(
+            f"level_idx must be contiguous int32 {tuple(rois.shape[:2])} on {rois.device}, "
+            f"got {level_idx.dtype} {tuple(level_idx.shape)} on {level_idx.device}"
+        )
+
+
+def multilevel_roi_align_bwd_cuda(
+    level_shapes: dict[int, tuple[int, int]],
+    dtype: torch.dtype,
+    rois: torch.Tensor,
+    level_idx: torch.Tensor,
+    g: torch.Tensor,
+    sampling_ratio: int = 2,
+) -> dict[int, torch.Tensor]:
+    """Kernel B2 on CUDA tensors; the plain version on CPU tensors.
+
+    level_shapes {level: (H_l, W_l)} of the forward's pyramid (consecutive
+    levels), its dtype, rois (B, R, 4) f32, level_idx (B, R) int32 as the
+    forward used it, g (B, R, S, S, C) in ``dtype`` -> {level: (B, H_l,
+    W_l, C)} in ``dtype``."""
+    if rois.device.type == "cpu":
+        return multilevel_roi_align_bwd_plain(level_shapes, dtype, rois, level_idx, g,
+                                              sampling_ratio)
+    if rois.device.type != "cuda":
+        raise ValueError(f"roi_align_bwd kernel: unsupported device {rois.device}")
+    levels = sorted(level_shapes)
+    if not levels or len(levels) > _MAX_LEVELS or levels != list(
+            range(levels[0], levels[-1] + 1)):
+        raise ValueError(f"roi_align_bwd kernel needs 1..{_MAX_LEVELS} consecutive levels, "
+                         f"got {levels}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"roi_align_bwd kernel takes float32 or bfloat16, got {dtype}")
+    if rois.dtype != torch.float32 or rois.dim() != 3 or rois.shape[-1] != 4:
+        raise ValueError(f"rois must be (B, R, 4) float32, got {tuple(rois.shape)} {rois.dtype}")
+    b, r = rois.shape[:2]
+    if (g.dtype != dtype or g.dim() != 5 or g.shape[:2] != rois.shape[:2]
+            or g.shape[2] != g.shape[3] or g.device != rois.device):
+        raise ValueError(f"g must be (B, R, S, S, C) {dtype} on {rois.device}, "
+                         f"got {tuple(g.shape)} {g.dtype} on {g.device}")
+    rois = rois.contiguous()
+    g = g.contiguous()
+    _check_level_idx(level_idx, rois)
+    s, c = g.shape[2], g.shape[-1]
+
+    lib = _build.load("roi_align_bwd")
+    tile_fn = lib.roi_align_bwd_tile
+    tile_fn.argtypes, tile_fn.restype = [], ctypes.c_int
+    tile = tile_fn()
+    out, pyr, start = {}, _GradPyramid(), 0
+    for i, l in enumerate(levels):
+        h, w = (int(x) for x in level_shapes[l])
+        out[l] = torch.empty((b, h, w, c), dtype=dtype, device=rois.device)
+        pyr.ptr[i] = out[l].data_ptr()
+        pyr.h[i], pyr.w[i], pyr.level[i] = h, w, l
+        pyr.tiles_x[i] = -(-w // tile)
+        pyr.tile_start[i] = start
+        start += -(-h // tile) * pyr.tiles_x[i]
+    pyr.tile_start[len(levels)] = start
+    pyr.num_levels = len(levels)
+
+    fn = lib.roi_align_backward
+    fn.argtypes = [_GradPyramid] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(pyr, rois.data_ptr(), level_idx.data_ptr(), g.data_ptr(), b, r, c, s,
+            sampling_ratio, _DTYPES[dtype], _build.stream_ptr(rois.device))
+    _build.check(lib, rc, "roi_align_backward")
+    multilevel_roi_align_bwd_cuda.launches += 1
+    return out
+
+
+multilevel_roi_align_bwd_cuda.launches = 0
+
+BWD_IMPLS = ("pallas", "xla")
+
+
+class MultilevelRoiAlign(torch.autograd.Function):
+    """ROIAlign whose forward is B1 and whose backward is B2 (``bwd_impl=
+    "pallas"``) or autograd of the plain forward (``"xla"``, the JAX
+    package's ``bwd_impl="xla"``).  The levels assigned in the forward
+    are saved and handed to B2.  Rois get no gradient.  On CPU tensors
+    both kernels are their plain versions."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, output_size, sampling_ratio, bwd_impl, *feats):
+        pyramid = dict(zip(levels, feats))
+        level_idx = roi_level_index(rois, levels)
+        out = multilevel_roi_align_cuda(pyramid, rois, output_size, sampling_ratio,
+                                        level_idx=level_idx)
+        ctx.levels, ctx.sampling_ratio, ctx.bwd_impl = levels, sampling_ratio, bwd_impl
+        ctx.output_size = output_size
+        ctx.shapes = {l: tuple(f.shape[1:3]) for l, f in pyramid.items()}
+        ctx.dtype = feats[0].dtype
+        if bwd_impl == "xla":
+            ctx.save_for_backward(rois, *feats)
+        else:
+            ctx.save_for_backward(rois, level_idx)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rois = ctx.saved_tensors[0]
+        if ctx.bwd_impl == "xla":
+            feats = [f.detach().requires_grad_() for f in ctx.saved_tensors[1:]]
+            with torch.enable_grad():
+                out = multilevel_roi_align_plain(dict(zip(ctx.levels, feats)), rois,
+                                                 ctx.output_size, ctx.sampling_ratio)
+                grads = torch.autograd.grad(out, feats, g)
+        else:
+            by_level = multilevel_roi_align_bwd_cuda(
+                ctx.shapes, ctx.dtype, rois, ctx.saved_tensors[1], g.to(ctx.dtype),
+                ctx.sampling_ratio)
+            grads = [by_level[l] for l in ctx.levels]
+        d_rois = torch.zeros_like(rois) if ctx.needs_input_grad[0] else None
+        return (d_rois, None, None, None, None, *grads)
+
+
+def multilevel_roi_align_fast(
+    feature_pyramid: dict[int, torch.Tensor],
+    rois: torch.Tensor,
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+    bwd_impl: str = "pallas",
+) -> torch.Tensor:
+    """:class:`MultilevelRoiAlign` over a pyramid dict (the JAX package's
+    ``custom_vjp`` of the same name); with grad mode off (serving), B1
+    alone, without the ``Function``."""
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"roi_align_bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
+    if not torch.is_grad_enabled():
+        return multilevel_roi_align_cuda(feature_pyramid, rois, output_size, sampling_ratio)
+    levels = sorted(feature_pyramid)
+    return MultilevelRoiAlign.apply(rois, levels, output_size, sampling_ratio, bwd_impl,
+                                    *(feature_pyramid[l] for l in levels))

@@ -37,6 +37,7 @@ from mx_rcnn_tpu_torch.data.transforms import letterbox, normalize_image
 from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
 from mx_rcnn_tpu_torch.detection.graph import forward_inference, forward_proposals
 from mx_rcnn_tpu_torch.evalutil.postprocess import unletterbox_detections
+from mx_rcnn_tpu_torch.utils.device import resolve_device
 
 MODES = ("full", "reduced", "proposals")
 
@@ -56,17 +57,6 @@ class DeadlineExceeded(ServeError):
 class EngineUnavailable(ServeError):
     """The engine cannot serve (not started, stopping, or an unwarmed
     program was asked for)."""
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the card; no card -> an error, never the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port serves on the card; pass device='cpu' "
-            "explicitly to run on the CPU"
-        )
-    return dev
 
 
 def serving_model_cfg(cfg):

@@ -1,1 +1,1 @@
-"""Utilities: the mixed-precision policy."""
+"""Utilities: the mixed-precision policy and device resolution."""

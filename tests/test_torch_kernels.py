@@ -7,7 +7,11 @@ import, so every worker collects the same tests).  On the card:
 
 B3 (fused middle) and B4 (NMS) are bitwise; B1 (ROIAlign) is bitwise in
 float32 and within one bf16 ulp in bfloat16 (it sums in the plain
-version's order, and the build keeps multiplies and adds apart).
+version's order, and the build keeps multiplies and adds apart).  B2
+(ROIAlign backward) sums in another order than the plain ``index_add_``:
+float32 within 1e-5 of the largest gradient of ``|g|`` (the sum of the
+absolute contributions), bfloat16 within one bf16 ulp of the plain
+version's float32 sum plus that; two launches are bitwise equal.
 """
 
 from __future__ import annotations
@@ -24,8 +28,12 @@ from mx_rcnn_tpu_torch.ops.cuda.nms import (
     nms_mask_cuda,
 )
 from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+    multilevel_roi_align_bwd_cuda,
+    multilevel_roi_align_bwd_plain,
     multilevel_roi_align_cuda,
+    multilevel_roi_align_fast,
     multilevel_roi_align_plain,
+    roi_level_index,
 )
 from mx_rcnn_tpu_torch.ops.nms import nms_mask
 from mx_rcnn_tpu_torch.ops.topk import top_k
@@ -103,6 +111,62 @@ def test_roi_align_kernel(cuda, dtype):
         assert bool((diff <= ulp).all())
 
 
+def _ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def _bwd_case(cuda, c, rois_per_image=150, seed=0):
+    rng = np.random.RandomState(seed)
+    shapes = {l: (320 >> l, 448 >> l) for l in (2, 3, 4, 5)}
+    xy = rng.uniform(-10, 440, (2, rois_per_image, 2))
+    wh = rng.uniform(1, 300, (2, rois_per_image, 2))
+    rois = torch.tensor(np.concatenate([xy, xy + wh], -1), dtype=torch.float32, device=cuda)
+    g = torch.tensor(rng.randn(2, rois_per_image, 7, 7, c), dtype=torch.float32, device=cuda)
+    return shapes, rois, roi_level_index(rois, (2, 3, 4, 5)), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [96, 256])
+def test_roi_align_bwd_kernel(cuda, dtype, c):
+    shapes, rois, li, g = _bwd_case(cuda, c)
+    g = g.to(dtype)
+    before = multilevel_roi_align_bwd_cuda.launches
+    got = multilevel_roi_align_bwd_cuda(shapes, dtype, rois, li, g)
+    again = multilevel_roi_align_bwd_cuda(shapes, dtype, rois, li, g)
+    torch.cuda.synchronize()
+    assert multilevel_roi_align_bwd_cuda.launches == before + 2
+    want = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float())
+    scale = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float().abs())
+    for l in shapes:
+        assert got[l].dtype == dtype and got[l].shape == (2, *shapes[l], c)
+        assert torch.equal(got[l], again[l])                      # deterministic
+        diff = (got[l].float() - want[l]).abs()
+        tol = 1e-5 * float(scale[l].max().clamp(min=1.0))
+        if dtype == torch.bfloat16:
+            tol = _ulp(want[l]) + tol
+        assert bool((diff <= tol).all()), l
+
+
+def test_roi_align_function_gradient(cuda):
+    """The Function's backward (B2) is the adjoint of its forward (B1):
+    <B1(x), g> = <x, B2(g)>, and it matches autograd of the plain forward."""
+    shapes, rois, _, g = _bwd_case(cuda, 32, rois_per_image=40, seed=1)
+    rng = np.random.RandomState(2)
+    pyr = {l: torch.tensor(rng.randn(2, h, w, 32), dtype=torch.float32, device=cuda)
+           for l, (h, w) in shapes.items()}
+    p = {l: f.clone().requires_grad_() for l, f in pyr.items()}
+    out = multilevel_roi_align_fast(p, rois, 7, 2, "pallas")
+    out.backward(g)
+    lhs = float((out.detach().double() * g.double()).sum())
+    rhs = sum(float((pyr[l].double() * p[l].grad.double()).sum()) for l in pyr)
+    assert abs(lhs - rhs) <= 1e-5 * (abs(lhs) + 1.0)
+    q = {l: f.clone().requires_grad_() for l, f in pyr.items()}
+    multilevel_roi_align_plain(q, rois).backward(g)
+    for l in pyr:
+        assert (p[l].grad - q[l].grad).abs().max().item() <= 1e-5 * max(
+            1.0, q[l].grad.abs().max().item())
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     pyr = {l: torch.zeros(1, 64 >> l, 64 >> l, 8, device=cuda) for l in (2, 3, 4, 5)}
     rois = torch.zeros(1, 4, 4, device=cuda)
@@ -115,6 +179,14 @@ def test_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         nms_keep_sorted_cuda(torch.zeros(2, 5, 4, device=cuda),
                              torch.zeros(2, 6, dtype=torch.bool, device=cuda), 0.5)
+    li = roi_level_index(rois, (2, 3, 4, 5))
+    shapes = {l: tuple(f.shape[1:3]) for l, f in pyr.items()}
+    with pytest.raises(TypeError):
+        multilevel_roi_align_bwd_cuda(shapes, torch.float16, rois, li,
+                                      torch.zeros(1, 4, 7, 7, 8, device=cuda).half())
+    with pytest.raises(ValueError):
+        multilevel_roi_align_bwd_cuda(shapes, torch.float32, rois, li.long(),
+                                      torch.zeros(1, 4, 7, 7, 8, device=cuda))
     with pytest.raises(TypeError):
         fused_middle_levels(torch.zeros(1, 1, 4, 4, device=cuda, dtype=torch.float64),
                             torch.zeros(1, 1, 4, 4, device=cuda),
