@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # on a machine with the card
     python3 chip_smoke.py --cpu-rehearsal # anywhere: tiny shapes, plain ops
+    python3 chip_smoke.py --parent DIR    # also hold B2, B4 against DIR's
 
 Phases (any failure exits non-zero, and the ``ok`` line is printed only
 when every phase passed):
@@ -13,18 +14,21 @@ when every phase passed):
 3. Hold each kernel against its plain torch version on the card at the
    serving shapes of ``r50_fpn_coco`` (800x1344 canvas, batch 2): B1
    ROIAlign in bf16 (within 1 bf16 ulp) and f32 (atol 1e-5), B3 fused
-   middle and B4 NMS bitwise; and at its train shapes (512 rois per image
-   sampled as the train step samples them): B2 ROIAlign backward in bf16
-   (within 1 bf16 ulp of the plain float32 sum, plus the f32 tolerance)
-   and f32 (within 1e-5 of the largest gradient of |g|), two launches
-   bitwise equal.  Time both with CUDA events after a warm-up.
+   middle bitwise, B4 NMS bitwise at the stacked shape the ``proposals``
+   path launches (batch 1, 5 levels, n = 1000), at PR 2's one-level shape
+   (P2, batch 2) and at n = 2000 (the train pre-NMS top-n); and at its
+   train shapes (512 rois per image sampled as the train step samples
+   them): B2 ROIAlign backward in bf16 (within 1 bf16 ulp of the plain
+   float32 sum, plus the f32 tolerance) and f32 (within 1e-5 of the
+   largest gradient of |g|), two launches bitwise equal.  Time all with
+   CUDA events after a warm-up.
 4. Serve ``r50_fpn_coco`` at full width with random weights from a seed:
    an engine with ``serve.fused_middle=on`` and batch 2 (the ``full``
    program: B1 + B3), and one with ``rpn.nms_impl=pallas`` (the
-   ``proposals`` program: B4).  Each path runs with the launch counts set
-   to 0 just before it and read just after; every kernel of a path must
-   have launched.  Every response must be finite with boxes inside its
-   image, and the full path must return detections.
+   ``proposals`` program: B4, one launch a request).  Each path runs with
+   the launch counts set to 0 just before it and read just after; every
+   kernel of a path must have launched.  Every response must be finite
+   with boxes inside its image, and the full path must return detections.
 5. Train ``r50_fpn_coco`` at full width (``model.rpn.loss_impl=compact``,
    the mixed bf16 policy, batch 2, synthetic uint8 images on the 800x1344
    canvas, random weights from the seed) for 5 steps through
@@ -32,7 +36,10 @@ when every phase passed):
    every trainable parameter moved, frozen parameters and FrozenBN buffers
    bitwise unchanged, B1 and B2 launched in every step.  Seconds per step
    after the first (without and with the batch assembly) and peak memory
-   are printed.
+   are printed.  The last step's B2 inputs are kept; B2 is then held and
+   timed on them and on crowded rois (every roi of an image inside one
+   8x8-cell tile of P2), as in phase 3.  B1's launches count ``full`` and
+   ``train`` both.
 6. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -41,7 +48,10 @@ when every phase passed):
    relative (B1 is bitwise in f32) and gradients within the CPU parity
    tests' tolerances (backbone 5e-3 by norm, the rest 1e-5 of the largest
    value): B2 and autograd's scatter sum in different orders.
-7. Print the card's line, the ``kernels`` line and, last,
+7. With ``--parent DIR``: build DIR's B2 and B4 sources, require this
+   tree's kernels to give the same bits on phase 3's and phase 5's inputs,
+   and time both in turns (parent, this, this, parent).
+8. Print the card's line, the ``kernels`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -182,33 +192,59 @@ def kernel_phase(dev: torch.device, rehearsal: bool, seed: int) -> dict:
         rpn.test_post_nms_top_n, rpn.nms_threshold, rpn.min_size, fused_middle=True,
     ).rois.contiguous()
 
-    # B4: the NMS kernel over each level's score-sorted dense candidates.
-    dense = [_pre_nms_candidates(scores[l], deltas[l], anchors[l], image_hw,
-                                 rpn.test_pre_nms_top_n, rpn.min_size)
-             for l in sorted(anchors)]
-    boxes = _stack_padded([x for x, _ in dense], 0.0)
-    msc = _stack_padded([s for _, s in dense], -torch.inf)
-    order = torch.argsort(-msc, dim=-1, stable=True)
-    sboxes = torch.gather(boxes, 2, order[..., None].expand(*order.shape, 4)).contiguous()
-    svalid = torch.gather(torch.isfinite(msc), 2, order)
+    # B4: the NMS kernel over the score-sorted dense candidates of every
+    # (image, level): the proposals path stacks them into one launch (its
+    # batch is 1); PR 2's one-level shape (P2, batch 2) is kept beside it.
+    def sorted_candidates(pre_nms_top_n):
+        dense = [_pre_nms_candidates(scores[l], deltas[l], anchors[l], image_hw,
+                                     pre_nms_top_n, rpn.min_size)
+                 for l in sorted(anchors)]
+        boxes = _stack_padded([x for x, _ in dense], 0.0)
+        msc = _stack_padded([s for _, s in dense], -torch.inf)
+        order = torch.argsort(-msc, dim=-1, stable=True)
+        return (torch.gather(boxes, 2, order[..., None].expand(*order.shape, 4)).contiguous(),
+                torch.gather(torch.isfinite(msc), 2, order).contiguous())
+
     thresh = rpn.nms_threshold
-    # The serving path launches once per level over the batch: P2's shape.
-    p2 = (sboxes[:, 0].contiguous(), svalid[:, 0].contiguous(), thresh)
-    mismatched, keeps = 0, []
-    for lv in range(sboxes.shape[1]):
-        a = (sboxes[:, lv].contiguous(), svalid[:, lv].contiguous(), thresh)
+    sboxes, svalid = sorted_candidates(rpn.test_pre_nms_top_n)
+    tboxes, tvalid = sorted_candidates(rpn.train_pre_nms_top_n)
+    nms_shapes = {
+        "stacked": (sboxes[:1].contiguous(), svalid[:1].contiguous(), thresh),
+        "one_level": (sboxes[:, 0].contiguous(), svalid[:, 0].contiguous(), thresh),
+        "n2000": (tboxes[:1].contiguous(), tvalid[:1].contiguous(), thresh),
+    }
+    nms = {}
+    for key, a in nms_shapes.items():
         k1, k2 = nms_keep_sorted_cuda(*a), nms_keep_sorted_plain(*a)
-        mismatched += int((k1 != k2).sum())
-        keeps.append(k1)
-    keep = torch.stack(keeps, 1)
+        nms[key] = dict(
+            mismatched=int((k1 != k2).sum()), keep=k1,
+            ms=clock.ms(lambda: nms_keep_sorted_cuda(*a), iters),
+            bound=bound(nbytes(a[0], a[1], k1), IOU_FLOPS * greedy_pairs(k1, a[1])),
+        )
+    mismatched = sum(v["mismatched"] for v in nms.values())
+    stacked = nms_shapes["stacked"]
+    # The sweep's sequential floor is n/64 chunk steps.  The time a chunk
+    # step adds is read from the n = 1000 and n = 2000 launches: 16 more
+    # chunks, and 4x the mask tiles, so it is an upper estimate.
+    chunks = {k: -(-a[0].shape[-2] // 64) for k, a in nms_shapes.items()}
+    more = chunks["n2000"] - chunks["stacked"]
+    chunk_us = (1e3 * (nms["n2000"]["ms"] - nms["stacked"]["ms"]) / more if more
+                else float("nan"))
     out["nms"] = dict(
         match=mismatched == 0, max_abs_err=float(mismatched > 0),
-        ms=clock.ms(lambda: nms_keep_sorted_cuda(*p2), iters),
-        plain_ms=clock.ms(lambda: nms_keep_sorted_plain(*p2), plain_iters),
-        bound=bound(nbytes(p2[0], p2[1], keep[:, 0]),
-                    IOU_FLOPS * greedy_pairs(keep[:, 0], p2[1])),
-        shape=f"B={b} n={sboxes.shape[2]} (one level)",
+        ms=nms["stacked"]["ms"],
+        plain_ms=clock.ms(lambda: nms_keep_sorted_plain(*stacked), plain_iters),
+        bound=nms["stacked"]["bound"],
+        extra=dict(ms_one_level=nms["one_level"]["ms"],
+                   bound_ms_one_level=nms["one_level"]["bound"][0],
+                   ms_n2000=nms["n2000"]["ms"], chunk_step_us=chunk_us,
+                   sequential_floor_ms=1e-3 * chunk_us * chunks["stacked"]),
+        inputs=nms_shapes,
+        shape=f"B=1 L={sboxes.shape[1]} n={sboxes.shape[2]} (stacked, one launch)",
     )
+    log(f"[kernel:nms] one level B={b} n={sboxes.shape[2]}: {nms['one_level']['ms']:.4f} ms; "
+        f"stacked n={tboxes.shape[2]}: {nms['n2000']['ms']:.4f} ms; mismatched "
+        f"{ {k: v['mismatched'] for k, v in nms.items()} }; a chunk step <= {chunk_us:.3f} us")
 
     # B1: ROIAlign over a P2-P5 pyramid, bf16 (the serving dtype) and f32.
     s, sr = cfg.model.rcnn.pooled_size, cfg.model.rcnn.sampling_ratio
@@ -249,11 +285,7 @@ def backward_phase(dev, rehearsal: bool, seed: int) -> dict:
     train shapes, on rois sampled as the train step samples them."""
     from mx_rcnn_tpu_torch.config import get_config
     from mx_rcnn_tpu_torch.detection.graph import _slice_levels, level_anchors
-    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
-        multilevel_roi_align_bwd_cuda,
-        multilevel_roi_align_bwd_plain,
-        roi_level_index,
-    )
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import roi_level_index
     from mx_rcnn_tpu_torch.ops.proposals import generate_fpn_proposals
     from mx_rcnn_tpu_torch.ops.sampling import sample_rois
 
@@ -283,34 +315,86 @@ def backward_phase(dev, rehearsal: bool, seed: int) -> dict:
     shapes = {l: (h >> l, w >> l) for l in (2, 3, 4, 5)}
     s, sr = rc.pooled_size, rc.sampling_ratio
     cot = torch.randn((b, rois.shape[1], s, s, c), generator=g).to(dev)
-    want = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, level_idx, cot, sr)
-    scale = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, level_idx, cot.abs(), sr)
     out = {}
     for dt, name in ((torch.bfloat16, "roi_align_bwd"), (torch.float32, "roi_align_bwd_f32")):
-        gd = cot.to(dt)
-        args = (shapes, dt, rois, level_idx, gd, sr)
-        got = multilevel_roi_align_bwd_cuda(*args)
-        again = multilevel_roi_align_bwd_cuda(*args)
-        ref = want if dt == torch.float32 else multilevel_roi_align_bwd_plain(
-            shapes, torch.float32, rois, level_idx, gd.float(), sr)
-        same, deterministic, err = True, True, 0.0
-        for l in shapes:
-            diff = (got[l].float() - ref[l]).abs()
-            tol = 1e-5 * float(scale[l].max().clamp(min=1.0))
-            if dt == torch.bfloat16:
-                tol = bf16_ulp(ref[l]) + tol
-            same &= bool((diff <= tol).all())
-            deterministic &= torch.equal(got[l], again[l])
-            err = max(err, float(diff.max()))
-        taps = rois.shape[0] * rois.shape[1] * s * s * sr * sr * 4
-        out[name] = dict(
-            match=same and deterministic, deterministic=deterministic, max_abs_err=err,
-            ms=clock.ms(lambda: multilevel_roi_align_bwd_cuda(*args), iters),
-            plain_ms=clock.ms(lambda: multilevel_roi_align_bwd_plain(*args), plain_iters),
-            bound=bound(nbytes(gd, rois, level_idx, *got.values()), 3 * taps * c),
-            shape=f"B={b} R={rois.shape[1]} C={c} {str(dt).split('.')[-1]}",
-        )
+        args = (shapes, dt, rois, level_idx, cot.to(dt), sr)
+        out[name] = hold_bwd(args, clock, iters, plain_iters)
+        out[name]["inputs"] = args
     return out
+
+
+def hold_bwd(args, clock, iters: int, plain_iters: int) -> dict:
+    """B2 on ``args`` against its plain version: within 1e-5 of the largest
+    gradient of |g| (plus one bf16 ulp of the plain float32 sum in bf16),
+    two launches bitwise equal; timed."""
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_bwd_plain,
+    )
+
+    shapes, dt, rois, level_idx, gd, sr = args
+    got = multilevel_roi_align_bwd_cuda(*args)
+    again = multilevel_roi_align_bwd_cuda(*args)
+    ref = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, level_idx, gd.float(), sr)
+    scale = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, level_idx,
+                                           gd.float().abs(), sr)
+    same, deterministic, err = True, True, 0.0
+    for l in shapes:
+        diff = (got[l].float() - ref[l]).abs()
+        tol = 1e-5 * float(scale[l].max().clamp(min=1.0))
+        if dt == torch.bfloat16:
+            tol = bf16_ulp(ref[l]) + tol
+        same &= bool((diff <= tol).all())
+        deterministic &= torch.equal(got[l], again[l])
+        err = max(err, float(diff.max()))
+    b, r, s, _, c = gd.shape
+    taps = b * r * s * s * sr * sr * 4
+    return dict(
+        match=same and deterministic, deterministic=deterministic, max_abs_err=err,
+        ms=clock.ms(lambda: multilevel_roi_align_bwd_cuda(*args), iters),
+        plain_ms=clock.ms(lambda: multilevel_roi_align_bwd_plain(*args), plain_iters),
+        bound=bound(nbytes(gd, rois, level_idx, *got.values()), 3 * taps * c),
+        shape=f"B={b} R={r} C={c} {str(dt).split('.')[-1]}",
+    )
+
+
+def crowded_rois(b: int, r: int, seed: int) -> torch.Tensor:
+    """(b, r, 4) rois all inside the 8x8-cell tile (1, 1) of P2 (image
+    pixels 32..64): every roi of an image lands on one tile."""
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(34.0, 44.0, (b, r, 2))
+    wh = rng.uniform(2.0, 14.0, (b, r, 2))
+    return torch.tensor(np.concatenate([xy, xy + wh], -1), dtype=torch.float32)
+
+
+def backward_cases_phase(dev, rehearsal: bool, seed: int, step_args, kernels: dict) -> None:
+    """Phase 5b: B2 on the rois and cotangent of a real train step (its
+    backward's inputs, captured in the train phase) and on crowded rois,
+    each held against its plain version and timed."""
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import roi_level_index
+
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    shapes, dt, rois, _, gd, sr = step_args
+    crowd = crowded_rois(rois.shape[0], rois.shape[1], seed).to(dev)
+    g = torch.Generator().manual_seed(seed + 5)
+    cases = {
+        "step": step_args,
+        "crowded": (shapes, dt, crowd, roi_level_index(crowd, sorted(shapes)),
+                    torch.randn(gd.shape, generator=g).to(dt).to(dev), sr),
+    }
+    k = kernels["roi_align_bwd"]
+    for name, args in cases.items():
+        res = hold_bwd(args, clock, iters, plain_iters)
+        log(f"[kernel:roi_align_bwd:{name}] {res['shape']}: match={res['match']} "
+            f"max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
+            f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound'][0]:.4f}")
+        k["match"] = k["match"] and res["match"]
+        k.setdefault("extra", {}).update({f"ms_{name}": res["ms"],
+                                          f"plain_ms_{name}": res["plain_ms"],
+                                          f"bound_ms_{name}": res["bound"][0],
+                                          f"max_abs_err_{name}": res["max_abs_err"]})
+        k.setdefault("cases", {})[name] = args
 
 
 def check_response(res: dict, height: int, width: int) -> None:
@@ -427,6 +511,7 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
     through ``train/loop.py::train``; the launch counts are set to 0 just
     before and read after every step."""
     from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.ops.cuda import roi_align as roi_align_mod
     from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
         multilevel_roi_align_bwd_cuda,
         multilevel_roi_align_cuda,
@@ -455,12 +540,27 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
         steps_seen.append((time.perf_counter(), m, per_step))
         log(f"[train] {line} launches {per_step}")
 
+    # The backward's inputs of the last step, for timing B2 on a real
+    # step's rois: the autograd Function's backward, wrapped.
+    step_args = []
+    backward = roi_align_mod.MultilevelRoiAlign.backward
+
+    def capture(ctx, g):
+        rois, level_idx = ctx.saved_tensors[:2]
+        step_args[:] = [(dict(ctx.shapes), ctx.dtype, rois.clone(), level_idx.clone(),
+                         g.to(ctx.dtype).contiguous().clone(), ctx.sampling_ratio)]
+        return backward(ctx, g)
+
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    state = train(cfg, steps=steps, device=dev, variables=variables, log=on_step)
+    roi_align_mod.MultilevelRoiAlign.backward = staticmethod(capture)
+    try:
+        state = train(cfg, steps=steps, device=dev, variables=variables, log=on_step)
+    finally:
+        roi_align_mod.MultilevelRoiAlign.backward = staticmethod(backward)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
 
     bad = [i for i, (_, m, _) in enumerate(steps_seen)
@@ -500,7 +600,9 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
         f"loss {steps_seen[0][1]['loss']:.4f} -> {steps_seen[-1][1]['loss']:.4f}; "
         f"frozen {n_frozen} parameters and all buffers unchanged, {moved} of {n_train} "
         f"trainable moved; launches {launches}")
-    return {"launches": launches}
+    if not step_args:
+        raise AssertionError("train: the ROIAlign backward was never called")
+    return {"launches": launches, "step_args": step_args[0]}
 
 
 def train_reference_phase(dev, seed: int) -> None:
@@ -553,17 +655,111 @@ def train_reference_phase(dev, seed: int) -> None:
 
 
 # The kernels of the main paths: source, the TPU kernel it replaces, and
-# the path that launches it.  (``roi_align_f32`` is checked as
-# well, but the serving path runs bf16, so it is no entry of its own.)
+# the paths that launch it.  (``roi_align_f32`` and ``roi_align_bwd_f32``
+# are checked as well, but the paths run bf16, so they are no entries of
+# their own.)
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu",
-                  "mx_rcnn_tpu/ops/pallas/roi_align.py:393", "full"),
+                  "mx_rcnn_tpu/ops/pallas/roi_align.py:393", ("full", "train")),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
-                      "mx_rcnn_tpu/ops/pallas/roi_align.py:623", "train"),
+                      "mx_rcnn_tpu/ops/pallas/roi_align.py:623", ("train",)),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
-                     "mx_rcnn_tpu/ops/pallas/middle.py:145", "full"),
-    "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75", "proposals"),
+                     "mx_rcnn_tpu/ops/pallas/middle.py:145", ("full",)),
+    "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75",
+            ("proposals",)),
 }
+
+
+def parent_phase(dev, parent: str, kernels: dict) -> dict:
+    """Build B2 and B4 from another tree's sources (``parent``, e.g. the
+    parent commit unpacked by ``git archive``) and hold this tree's kernels
+    bitwise against them on this run's inputs, timed in turns (parent,
+    this, this, parent).  The parent's C entry points are PR 2's: B4's has
+    this tree's signature, B2's lacks the list scratch and the ``vec``
+    flag."""
+    import ctypes
+
+    from mx_rcnn_tpu_torch.ops.cuda import _build
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_keep_sorted_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        _DTYPES,
+        TILE,
+        _grad_pyramid,
+        _GradPyramid,
+        multilevel_roi_align_bwd_cuda,
+    )
+
+    csrc = os.path.join(os.path.abspath(parent), "mx_rcnn_tpu_torch", "csrc")
+    out_dir = os.path.join(_build.BUILD_DIR, "parent")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name in ("nms", "roi_align_bwd"):
+        lib_path = os.path.join(out_dir, f"lib{name}.so")
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc, "-o", lib_path,
+               os.path.join(csrc, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib_path)
+    libs = {}
+    for name, (proc, lib_path) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"parent {name}.cu did not build:\n{text}")
+        libs[name] = ctypes.CDLL(lib_path)
+    clock = Clock(dev)
+    stream = _build.stream_ptr(dev)
+
+    nms_fn = libs["nms"].nms_keep_sorted
+    nms_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_void_p]
+    nms_fn.restype = ctypes.c_int
+
+    def parent_nms(sboxes, svalid, thresh):
+        n = sboxes.shape[-2]
+        boxes = sboxes.reshape(-1, n, 4).contiguous()
+        valid = svalid.reshape(-1, n).to(torch.uint8).contiguous()
+        mask = torch.empty((boxes.shape[0], n, -(-n // 64)), dtype=torch.int64, device=dev)
+        keep = torch.empty((boxes.shape[0], n), dtype=torch.uint8, device=dev)
+        rc = nms_fn(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
+                    boxes.shape[0], n, float(thresh), stream)
+        if rc != 0:
+            raise AssertionError(f"parent nms_keep_sorted: CUDA error {rc}")
+        return keep.bool().reshape(svalid.shape)
+
+    bwd_fn = libs["roi_align_bwd"].roi_align_backward
+    bwd_fn.argtypes = [_GradPyramid] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    bwd_fn.restype = ctypes.c_int
+
+    def parent_bwd(shapes, dt, rois, level_idx, g, sr):
+        b, r = rois.shape[:2]
+        grads, pyr = _grad_pyramid(shapes, b, g.shape[-1], dt, dev, TILE)
+        rc = bwd_fn(pyr, rois.data_ptr(), level_idx.data_ptr(), g.data_ptr(), b, r,
+                    g.shape[-1], g.shape[2], sr, _DTYPES[dt], stream)
+        if rc != 0:
+            raise AssertionError(f"parent roi_align_backward: CUDA error {rc}")
+        return grads
+
+    def turns(old, new, args, iters=20):
+        t = [clock.ms(lambda: old(*args), iters), clock.ms(lambda: new(*args), iters),
+             clock.ms(lambda: new(*args), iters), clock.ms(lambda: old(*args), iters)]
+        return {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]]}
+
+    res = {}
+    for key, args in kernels["nms"]["inputs"].items():
+        same = torch.equal(parent_nms(*args), nms_keep_sorted_cuda(*args))
+        res[f"nms:{key}"] = {"bitwise": same, **turns(parent_nms, nms_keep_sorted_cuda, args)}
+    bwd_cases = {"spread": kernels["roi_align_bwd"]["inputs"],
+                 "spread_f32": kernels["roi_align_bwd_f32"]["inputs"],
+                 **kernels["roi_align_bwd"].get("cases", {})}
+    for key, args in bwd_cases.items():
+        old, new = parent_bwd(*args), multilevel_roi_align_bwd_cuda(*args)
+        same = all(torch.equal(old[l], new[l]) for l in old)
+        res[f"roi_align_bwd:{key}"] = {
+            "bitwise": same, **turns(parent_bwd, multilevel_roi_align_bwd_cuda, args)}
+    for key, r in res.items():
+        log(f"[parent:{key}] bitwise={r['bitwise']} parent ms {r['parent_ms']} "
+            f"this tree ms {r['ms']}")
+    return res
 
 
 def main() -> int:
@@ -571,10 +767,16 @@ def main() -> int:
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny shapes on the CPU through the plain versions; never prints ok")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None,
+                    help="another tree (e.g. the parent commit from git archive): hold B2 "
+                         "and B4 bitwise against its kernels and time both in turns")
     args = ap.parse_args()
 
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
+        return 2
+    if args.cpu_rehearsal and args.parent:
+        log("chip_smoke: --parent needs the card")
         return 2
     sys.path.insert(0, ROOT)
     try:
@@ -608,21 +810,25 @@ def main() -> int:
             f"({k['bound'][1]})")
     paths = serving_phase(dev, args.cpu_rehearsal, args.seed)
     paths["train"] = train_phase(dev, args.cpu_rehearsal, args.seed)
+    backward_cases_phase(dev, args.cpu_rehearsal, args.seed, paths["train"]["step_args"],
+                         kernels)
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)
+    parent = parent_phase(dev, args.parent, kernels) if args.parent else {}
 
     line = []
-    for name, (source, replaces, path) in KERNELS.items():
+    for name, (source, replaces, on) in KERNELS.items():
         k = kernels[name]
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": paths[path]["launches"][name],
+            "launches": sum(paths[p]["launches"][name] for p in on),
             "match": k["match"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
-            "library_ms": None, "shape": k["shape"],
+            "library_ms": None, "shape": k["shape"], **k.get("extra", {}),
         })
     failed = [name for name, k in kernels.items() if not k["match"]]
+    failed += [f"{k} differs from the parent's" for k, r in parent.items() if not r["bitwise"]]
     if not args.cpu_rehearsal:
         failed += [f"{k['name']} never launched" for k in line if k["launches"] <= 0]
     log(f"[card] {card}")

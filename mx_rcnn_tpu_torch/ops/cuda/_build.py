@@ -113,10 +113,26 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise when a C entry point returned a CUDA error code."""
+_ENTRIES: dict = {}
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """C entry point ``symbol`` of kernel ``name`` with its argument types
+    set once; it returns a CUDA error code (``int``)."""
+    key = (name, symbol)
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _ENTRIES[key] = fn
+    return fn
+
+
+def check(name: str, rc: int, what: str) -> None:
+    """Raise when a C entry point of kernel ``name`` returned a CUDA error
+    code."""
     if rc != 0:
-        fn = lib.kernel_error_string
+        fn = load(name).kernel_error_string
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
         raise KernelError(f"{what}: CUDA error {rc} ({fn(rc).decode()})")
 

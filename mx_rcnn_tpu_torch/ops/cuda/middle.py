@@ -61,15 +61,12 @@ def _launch(anchors, deltas, scores, image_hw, min_size, iou_threshold):
     boxes = torch.empty((b, lv, k, 4), dtype=torch.float32, device=dev)
     masked = torch.empty((b, lv, k), dtype=torch.float32, device=dev)
     keep = torch.empty((b, lv, k), dtype=torch.uint8, device=dev)
-    lib = _build.load("middle")
-    fn = lib.fused_middle_levels
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("middle", "fused_middle_levels", [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     rc = fn(anchors.data_ptr(), deltas.data_ptr(), scores.data_ptr(), image_hw.data_ptr(),
             boxes.data_ptr(), masked.data_ptr(), keep.data_ptr(), b, lv, k,
             float(min_size), float(iou_threshold), _build.stream_ptr(dev))
-    _build.check(lib, rc, "fused_middle_levels")
+    _build.check("middle", rc, "fused_middle_levels")
     fused_middle_levels.launches += 1
     return boxes, masked, keep.bool()
 

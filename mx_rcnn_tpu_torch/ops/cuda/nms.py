@@ -7,6 +7,8 @@ invalid and ``-inf`` lanes neither keep nor suppress; IoU is snapped to
 2**-16 before ``> thresh``.  The stable score sort and the scatter back to
 input order stay in torch around the kernel, as they stay in XLA around
 the Pallas kernel; the kernel (``csrc/nms.cu``) sees sorted boxes.
+Leading axes fold into independent problems of one launch, so the
+proposal middle's (B, L, k) candidates take one launch a call.
 
 :func:`nms_mask_cuda` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors; :func:`nms_keep_sorted_plain` is the
@@ -69,21 +71,19 @@ def _launch(sboxes: torch.Tensor, svalid: torch.Tensor, iou_threshold: float):
     n = sboxes.shape[-2]
     lead = sboxes.shape[:-2]
     boxes = sboxes.reshape(-1, n, 4).contiguous()
-    valid = svalid.reshape(-1, n).to(torch.uint8).contiguous()
+    valid = svalid.reshape(-1, n).contiguous()  # bool: one byte, 0 or 1
     problems = boxes.shape[0]
-    col_blocks = -(-n // 64)
-    mask = torch.empty((problems, n, col_blocks), dtype=torch.int64, device=boxes.device)
-    keep = torch.empty((problems, n), dtype=torch.uint8, device=boxes.device)
-    lib = _build.load("nms")
-    fn = lib.nms_keep_sorted
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    mask = torch.empty((problems, n, -(-n // 64)), dtype=torch.int64, device=boxes.device)
+    keep = torch.empty((problems, n), dtype=torch.bool, device=boxes.device)
+    fn = _build.entry("nms", "nms_keep_sorted", _ARGTYPES)
     rc = fn(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
             problems, n, float(iou_threshold), _build.stream_ptr(boxes.device))
-    _build.check(lib, rc, "nms_keep_sorted")
+    _build.check("nms", rc, "nms_keep_sorted")
     nms_mask_cuda.launches += 1
-    return keep.bool().reshape(*lead, n)
+    return keep.reshape(*lead, n)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
 
 def nms_keep_sorted_cuda(

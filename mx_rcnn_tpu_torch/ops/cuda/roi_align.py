@@ -10,7 +10,10 @@ dtype (float32 or bfloat16).  The batch folds into one launch.
 B2 replaces ``multilevel_roi_align_bwd_pallas``, the backward behind
 ``rcnn.roi_align_bwd_impl="pallas"``: the cotangent (B, R, S, S, C) ->
 one gradient per level (B, H_l, W_l, C), accumulated in f32 and cast once
-to the feature dtype, deterministic (``csrc/roi_align_bwd.cu``).
+to the feature dtype, deterministic (``csrc/roi_align_bwd.cu``).  Its
+first launch bins the rois into per-tile lists (:func:`roi_tile_lists_cuda`,
+plain version :func:`roi_tile_lists_plain`), its second walks each
+tile's list.
 
 Level assignment stays in torch ahead of the launch (the port's
 ``fpn_level_assignment``, extent bound 38 cells); :class:`MultilevelRoiAlign`
@@ -23,18 +26,22 @@ wrapper's ``.launches`` counts its kernel's launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from mx_rcnn_tpu_torch.ops.cuda import _build
 from mx_rcnn_tpu_torch.ops.roi_align import (
     MAX_EXTENT_CELLS,
+    _sample_grid,
     fpn_level_assignment,
     multilevel_roi_align,
     multilevel_roi_align_bwd,
 )
 
 _MAX_LEVELS = 8
+TILE = 8  # B2's output tile edge in cells (csrc/roi_align_bwd.cu kTile)
+BWD_GROUPS = 16  # B2's 8-channel groups a block: a 128-channel slab
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -138,13 +145,11 @@ def multilevel_roi_align_cuda(
         pyr.h[i], pyr.w[i], pyr.level[i] = f.shape[1], f.shape[2], l
     pyr.num_levels = len(levels)
 
-    lib = _build.load("roi_align")
-    fn = lib.roi_align_forward
-    fn.argtypes = [_Pyramid] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("roi_align", "roi_align_forward",
+                      [_Pyramid] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     rc = fn(pyr, rois.data_ptr(), level_idx.data_ptr(), out.data_ptr(), b * r, r, c,
             output_size, sampling_ratio, _DTYPES[dtype], _build.stream_ptr(rois.device))
-    _build.check(lib, rc, "roi_align_forward")
+    _build.check("roi_align", rc, "roi_align_forward")
     multilevel_roi_align_cuda.launches += 1
     return out
 
@@ -161,6 +166,135 @@ def _check_level_idx(level_idx: torch.Tensor, rois: torch.Tensor) -> None:
         )
 
 
+def roi_tile_lists_plain(
+    level_shapes: dict[int, tuple[int, int]],
+    rois: torch.Tensor,
+    level_idx: torch.Tensor,
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+    tile: int = TILE,
+) -> torch.Tensor:
+    """B2's binning pass in plain torch: which rois each output tile must
+    visit.  level_shapes {level: (H_l, W_l)} (consecutive levels), rois
+    (B, R, 4) f32, level_idx (B, R) int32 -> (B, T, ceil(R / 32)) int32
+    bitsets, T the ``tile`` x ``tile`` tiles of every level in level order
+    (row-major within a level): bit r % 32 of word r / 32 is set when roi
+    r's sample footprint at its level (the cells its first and last samples
+    can tap, as ``csrc/roi_align_bwd.cu::tap_span``) reaches the tile.  A
+    bitset is the tile's roi list in index order."""
+    levels = sorted(level_shapes)
+    b, r = rois.shape[:2]
+    dev = rois.device
+    li = level_idx.long()
+    hs = torch.tensor([level_shapes[l][0] for l in levels], dtype=torch.float32, device=dev)
+    ws = torch.tensor([level_shapes[l][1] for l in levels], dtype=torch.float32, device=dev)
+    x1, y1, bin_w, bin_h = _sample_grid(rois, li + levels[0], output_size)
+    sr = torch.tensor(float(sampling_ratio), dtype=torch.float32, device=dev)
+
+    def sample(start, bin_, p, i):  # csrc/roi_align_bwd.cu::sample_at
+        f = torch.tensor(i + 0.5, dtype=torch.float32, device=dev) / sr
+        return start + (torch.tensor(float(p), dtype=torch.float32, device=dev) + f) * bin_
+
+    def span(lo, hi, n):  # csrc/roi_align_bwd.cu::tap_span, in tiles
+        first = torch.floor(torch.minimum(torch.clamp(lo, min=0.0), n - 1)).long()
+        last = torch.minimum(
+            torch.floor(torch.minimum(torch.clamp(hi, min=0.0), n - 1)).long() + 1,
+            n.long() - 1)
+        return torch.div(first, tile, rounding_mode="floor"), torch.div(
+            last, tile, rounding_mode="floor")
+
+    ly0, ly1 = span(sample(y1, bin_h, 0, 0),
+                    sample(y1, bin_h, output_size - 1, sampling_ratio - 1), hs[li])
+    lx0, lx1 = span(sample(x1, bin_w, 0, 0),
+                    sample(x1, bin_w, output_size - 1, sampling_ratio - 1), ws[li])
+    member = []
+    for i, l in enumerate(levels):
+        h, w = level_shapes[l]
+        ty = torch.arange(-(-h // tile), device=dev)[:, None]
+        tx = torch.arange(-(-w // tile), device=dev)[None, :]
+        on = ((li == i)[..., None, None]
+              & (ly0[..., None, None] <= ty) & (ty <= ly1[..., None, None])
+              & (lx0[..., None, None] <= tx) & (tx <= lx1[..., None, None]))
+        member.append(on.reshape(b, r, -1))
+    member = torch.cat(member, dim=-1).transpose(1, 2)        # (B, T, R)
+    words = -(-r // 32)
+    member = torch.nn.functional.pad(member, (0, words * 32 - r))
+    bits = (member.reshape(*member.shape[:2], words, 32).long()
+            << torch.arange(32, device=dev)).sum(-1)
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+
+
+def _grad_pyramid(level_shapes, b: int, c: int, dtype, dev, tile: int):
+    """The output maps {level: (B, H_l, W_l, C)} and their ``_GradPyramid``."""
+    out, pyr, start = {}, _GradPyramid(), 0
+    for i, l in enumerate(sorted(level_shapes)):
+        h, w = (int(x) for x in level_shapes[l])
+        out[l] = torch.empty((b, h, w, c), dtype=dtype, device=dev)
+        pyr.ptr[i] = out[l].data_ptr()
+        pyr.h[i], pyr.w[i], pyr.level[i] = h, w, l
+        pyr.tiles_x[i] = -(-w // tile)
+        pyr.tile_start[i] = start
+        start += -(-h // tile) * pyr.tiles_x[i]
+    pyr.tile_start[len(out)] = start
+    pyr.num_levels = len(out)
+    return out, pyr
+
+
+def _check_bwd_levels(level_shapes) -> None:
+    levels = sorted(level_shapes)
+    if not levels or len(levels) > _MAX_LEVELS or levels != list(
+            range(levels[0], levels[-1] + 1)):
+        raise ValueError(f"roi_align_bwd kernel needs 1..{_MAX_LEVELS} consecutive levels, "
+                         f"got {levels}")
+
+
+def _bwd_rois(rois: torch.Tensor) -> torch.Tensor:
+    """Checked (B, R, 4) f32 rois with 16-byte aligned rows, as B2 reads
+    each roi's corners in one load."""
+    if rois.dtype != torch.float32 or rois.dim() != 3 or rois.shape[-1] != 4:
+        raise ValueError(f"rois must be (B, R, 4) float32, got {tuple(rois.shape)} {rois.dtype}")
+    rois = rois.contiguous()
+    return rois if rois.data_ptr() % 16 == 0 else rois.clone()
+
+
+@functools.cache
+def _bwd_entry(symbol: str, argtypes: tuple):
+    """An entry point of csrc/roi_align_bwd.cu, whose tile edge must be
+    the wrapper's."""
+    tile = _build.entry("roi_align_bwd", "roi_align_bwd_tile", [])()
+    if tile != TILE:
+        raise _build.KernelError(f"roi_align_bwd.cu tiles by {tile}, the wrapper by {TILE}")
+    return _build.entry("roi_align_bwd", symbol, list(argtypes))
+
+
+def roi_tile_lists_cuda(
+    level_shapes: dict[int, tuple[int, int]],
+    rois: torch.Tensor,
+    level_idx: torch.Tensor,
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """B2's binning pass alone (the first of its two launches) on CUDA
+    tensors; :func:`roi_tile_lists_plain` on CPU tensors."""
+    if rois.device.type == "cpu":
+        return roi_tile_lists_plain(level_shapes, rois, level_idx, output_size, sampling_ratio)
+    if rois.device.type != "cuda":
+        raise ValueError(f"roi_tile_lists: unsupported device {rois.device}")
+    _check_bwd_levels(level_shapes)
+    rois = _bwd_rois(rois)
+    _check_level_idx(level_idx, rois)
+    b, r = rois.shape[:2]
+    _, pyr = _grad_pyramid(level_shapes, b, 0, torch.float32, rois.device, TILE)
+    lists = torch.empty((b, pyr.tile_start[pyr.num_levels], -(-r // 32)), dtype=torch.int32,
+                        device=rois.device)
+    fn = _bwd_entry("roi_tile_lists",
+                    (_GradPyramid, *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 4, ctypes.c_void_p))
+    rc = fn(pyr, rois.data_ptr(), level_idx.data_ptr(), lists.data_ptr(), b, r, output_size,
+            sampling_ratio, _build.stream_ptr(rois.device))
+    _build.check("roi_align_bwd", rc, "roi_tile_lists")
+    return lists
+
+
 def multilevel_roi_align_bwd_cuda(
     level_shapes: dict[int, tuple[int, int]],
     dtype: torch.dtype,
@@ -174,53 +308,37 @@ def multilevel_roi_align_bwd_cuda(
     level_shapes {level: (H_l, W_l)} of the forward's pyramid (consecutive
     levels), its dtype, rois (B, R, 4) f32, level_idx (B, R) int32 as the
     forward used it, g (B, R, S, S, C) in ``dtype`` -> {level: (B, H_l,
-    W_l, C)} in ``dtype``."""
+    W_l, C)} in ``dtype``.  One call launches the binning pass and the
+    main kernel, and counts once."""
     if rois.device.type == "cpu":
         return multilevel_roi_align_bwd_plain(level_shapes, dtype, rois, level_idx, g,
                                               sampling_ratio)
     if rois.device.type != "cuda":
         raise ValueError(f"roi_align_bwd kernel: unsupported device {rois.device}")
-    levels = sorted(level_shapes)
-    if not levels or len(levels) > _MAX_LEVELS or levels != list(
-            range(levels[0], levels[-1] + 1)):
-        raise ValueError(f"roi_align_bwd kernel needs 1..{_MAX_LEVELS} consecutive levels, "
-                         f"got {levels}")
+    _check_bwd_levels(level_shapes)
     if dtype not in _DTYPES:
         raise TypeError(f"roi_align_bwd kernel takes float32 or bfloat16, got {dtype}")
-    if rois.dtype != torch.float32 or rois.dim() != 3 or rois.shape[-1] != 4:
-        raise ValueError(f"rois must be (B, R, 4) float32, got {tuple(rois.shape)} {rois.dtype}")
+    rois = _bwd_rois(rois)
     b, r = rois.shape[:2]
     if (g.dtype != dtype or g.dim() != 5 or g.shape[:2] != rois.shape[:2]
             or g.shape[2] != g.shape[3] or g.device != rois.device):
         raise ValueError(f"g must be (B, R, S, S, C) {dtype} on {rois.device}, "
                          f"got {tuple(g.shape)} {g.dtype} on {g.device}")
-    rois = rois.contiguous()
     g = g.contiguous()
     _check_level_idx(level_idx, rois)
     s, c = g.shape[2], g.shape[-1]
+    # Eight channels a load: C a multiple of 8 and 16-byte aligned rows.
+    vec = c % 8 == 0 and g.data_ptr() % 16 == 0
+    groups = min(BWD_GROUPS, -(-c // 8))
 
-    lib = _build.load("roi_align_bwd")
-    tile_fn = lib.roi_align_bwd_tile
-    tile_fn.argtypes, tile_fn.restype = [], ctypes.c_int
-    tile = tile_fn()
-    out, pyr, start = {}, _GradPyramid(), 0
-    for i, l in enumerate(levels):
-        h, w = (int(x) for x in level_shapes[l])
-        out[l] = torch.empty((b, h, w, c), dtype=dtype, device=rois.device)
-        pyr.ptr[i] = out[l].data_ptr()
-        pyr.h[i], pyr.w[i], pyr.level[i] = h, w, l
-        pyr.tiles_x[i] = -(-w // tile)
-        pyr.tile_start[i] = start
-        start += -(-h // tile) * pyr.tiles_x[i]
-    pyr.tile_start[len(levels)] = start
-    pyr.num_levels = len(levels)
-
-    fn = lib.roi_align_backward
-    fn.argtypes = [_GradPyramid] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(pyr, rois.data_ptr(), level_idx.data_ptr(), g.data_ptr(), b, r, c, s,
-            sampling_ratio, _DTYPES[dtype], _build.stream_ptr(rois.device))
-    _build.check(lib, rc, "roi_align_backward")
+    out, pyr = _grad_pyramid(level_shapes, b, c, dtype, rois.device, TILE)
+    lists = torch.empty((b, pyr.tile_start[pyr.num_levels], -(-r // 32)), dtype=torch.int32,
+                        device=rois.device)
+    fn = _bwd_entry("roi_align_backward",
+                    (_GradPyramid, *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 8, ctypes.c_void_p))
+    rc = fn(pyr, rois.data_ptr(), level_idx.data_ptr(), g.data_ptr(), lists.data_ptr(), b, r, c,
+            s, sampling_ratio, _DTYPES[dtype], groups, int(vec), _build.stream_ptr(rois.device))
+    _build.check("roi_align_bwd", rc, "roi_align_backward")
     multilevel_roi_align_bwd_cuda.launches += 1
     return out
 

@@ -10,7 +10,9 @@ Three middles, as in the JAX package:
   * fused (``fused_middle``): decode -> clip -> snap -> NMS in the CUDA
     kernel B3 (``ops/cuda/middle.py``), bitwise equal to the dense chain;
   * pallas-nms (``nms_impl="pallas"``): the dense decode with the keep
-    mask from the CUDA NMS kernel B4, one launch per level;
+    mask from the CUDA NMS kernel B4, one launch per call over every
+    (image, level) problem (the JAX package launches once per level,
+    because the TPU grid runs in order);
   * dense (``nms_impl="xla"``): all plain torch.
 """
 
@@ -127,19 +129,13 @@ def generate_fpn_proposals(
         ]
         bx = _stack_padded([b for b, _ in cand], 0.0)       # (B, L, k, 4)
         sc = _stack_padded([s for _, s in cand], -torch.inf)  # (B, L, k)
-        if nms_impl == "pallas":
-            # One NMS kernel launch per level, over the whole batch.
-            per_level = [
-                nms_indices(bx[:, l], sc[:, l], nms_threshold, post_nms_top_n,
-                            nms_impl="pallas")
-                for l in range(len(levels))
-            ]
-            keep_idx = torch.stack([i for i, _ in per_level], dim=1)
-            keep_valid = torch.stack([v for _, v in per_level], dim=1)
-        else:
-            keep_idx, keep_valid = nms_indices(
-                bx, sc, nms_threshold, post_nms_top_n, sweep_cap=nms_sweep_cap
-            )
+        # The pallas branch is one NMS kernel launch over every (image,
+        # level) problem; the padded lanes neither keep nor suppress, so
+        # each keep mask is the same bits as a per-level launch's.
+        keep_idx, keep_valid = nms_indices(
+            bx, sc, nms_threshold, post_nms_top_n, sweep_cap=nms_sweep_cap,
+            nms_impl=nms_impl,
+        )
     rois_l = torch.gather(bx, 2, keep_idx[..., None].expand(*keep_idx.shape, 4))
     rois_l = rois_l * keep_valid[..., None]
     scores_l = torch.where(keep_valid, torch.gather(sc, 2, keep_idx), 0.0)

@@ -12,6 +12,7 @@ import torch
 _STAGES = (
     ("roi_align_fwd", "B1 roi_align kernel"),
     ("roi_align_bwd", "B2 roi_align backward kernel"),
+    ("roi_tile_bins", "B2 roi_align backward kernel"),
     ("fused_middle", "B3 fused middle kernel"),
     ("nms_tile_masks", "B4 nms kernel"),
     ("nms_sweep", "B4 nms kernel"),

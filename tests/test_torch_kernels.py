@@ -5,7 +5,9 @@ import, so every worker collects the same tests).  On the card:
 
     python -m pytest tests/test_torch_kernels.py -m gpu
 
-B3 (fused middle) and B4 (NMS) are bitwise; B1 (ROIAlign) is bitwise in
+B3 (fused middle) and B4 (NMS) are bitwise, B4 up to n = 2000 and over
+several problems in one launch; B2's binning pass gives exactly the plain
+``roi_tile_lists_plain`` bitsets; B1 (ROIAlign) is bitwise in
 float32 and within one bf16 ulp in bfloat16 (it sums in the plain
 version's order, and the build keeps multiplies and adds apart).  B2
 (ROIAlign backward) sums in another order than the plain ``index_add_``:
@@ -34,6 +36,8 @@ from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
     multilevel_roi_align_fast,
     multilevel_roi_align_plain,
     roi_level_index,
+    roi_tile_lists_cuda,
+    roi_tile_lists_plain,
 )
 from mx_rcnn_tpu_torch.ops.nms import nms_mask
 from mx_rcnn_tpu_torch.ops.topk import top_k
@@ -66,6 +70,40 @@ def test_nms_kernel_bitwise(cuda, n):
     assert torch.equal(got, nms_keep_sorted_plain(b, v, 0.5))
     s = torch.tensor(np.round(rng.rand(3, n) * 8) / 8, dtype=torch.float32, device=cuda)
     assert torch.equal(nms_mask_cuda(b, s, 0.6, v), nms_mask(b, s, 0.6, v))
+
+
+def _nms_case(rng, problems, n):
+    """Sorted boxes and valid flags with an all-invalid problem, a run of
+    identical boxes and a long nested chain: box k of the chain suppresses
+    k + 1 (IoU 0.6) but not k + 2 (IoU 1/3), so greedy keeps every other."""
+    boxes = _boxes(rng, (problems, n))
+    valid = rng.rand(problems, n) > 0.1
+    if problems > 1:
+        valid[1] = False
+    if n > 16:
+        boxes[:, 6:16] = boxes[:, 5:6]
+    if n > 40:
+        k = np.arange(min(n - 20, 600))
+        chain = np.stack([500 + 5.0 * k, 0 * k + 500, 520 + 5.0 * k, 0 * k + 520], -1)
+        boxes[:, 20:20 + len(k)] = chain
+        valid[0, 20:20 + len(k)] = True
+    return (torch.tensor(boxes, device="cuda"), torch.tensor(valid, device="cuda"))
+
+
+@pytest.mark.parametrize("problems", [1, 10])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 700, 1000, 2000])
+def test_nms_kernel_bitwise_cases(cuda, n, problems):
+    b, v = _nms_case(np.random.RandomState(n + problems), problems, n)
+    before = nms_mask_cuda.launches
+    got = nms_keep_sorted_cuda(b, v, 0.5)
+    torch.cuda.synchronize()
+    assert nms_mask_cuda.launches == before + 1
+    want = nms_keep_sorted_plain(b, v, 0.5)
+    assert torch.equal(got, want)
+    if problems > 1:
+        assert not got[1].any()
+    if n > 40:
+        assert bool(want[0, 20:60:2].all()) and not bool(want[0, 21:60:2].any())
 
 
 @pytest.mark.parametrize("k,min_size", [(16, 0.0), (300, 0.0), (1000, 8.0)])
@@ -145,6 +183,82 @@ def test_roi_align_bwd_kernel(cuda, dtype, c):
         if dtype == torch.bfloat16:
             tol = _ulp(want[l]) + tol
         assert bool((diff <= tol).all()), l
+
+
+def _bwd_rois(kind, rng, rois_per_image=150):
+    """Rois on a 320x448 canvas: all inside one 8x8 tile of P2 (crowded),
+    across tile edges at every level's stride and across the level
+    thresholds (straddle), or partly outside the map (outside)."""
+    n = rois_per_image
+    if kind == "crowded":
+        xy = rng.uniform(34.0, 44.0, (2, n, 2))
+        rois = np.concatenate([xy, xy + rng.uniform(2.0, 14.0, (2, n, 2))], -1)
+    elif kind == "straddle":
+        stride = rng.choice([4, 8, 16, 32], (2, n, 1)) * 8.0
+        ctr = np.round(rng.uniform(0, 448, (2, n, 2)) / stride) * stride
+        half = rng.choice([56.0, 112.0, 224.0, 448.0], (2, n, 1)) / 2 * rng.uniform(0.9, 1.1, (2, n, 2))
+        rois = np.concatenate([ctr - half, ctr + half], -1)
+    else:
+        xy = rng.uniform(-150, 450, (2, n, 2))
+        rois = np.concatenate([xy, xy + rng.uniform(20, 300, (2, n, 2))], -1)
+    return torch.tensor(rois, dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [96, 256])
+@pytest.mark.parametrize("kind", ["crowded", "straddle", "outside"])
+def test_roi_align_bwd_kernel_cases(cuda, kind, c, dtype):
+    rng = np.random.RandomState(len(kind) + c)
+    shapes = {l: (320 >> l, 448 >> l) for l in (2, 3, 4, 5)}
+    rois = _bwd_rois(kind, rng)
+    li = roi_level_index(rois, (2, 3, 4, 5))
+    g = torch.tensor(rng.randn(2, rois.shape[1], 7, 7, c), dtype=torch.float32,
+                     device=cuda).to(dtype)
+    got = multilevel_roi_align_bwd_cuda(shapes, dtype, rois, li, g)
+    again = multilevel_roi_align_bwd_cuda(shapes, dtype, rois, li, g)
+    torch.cuda.synchronize()
+    want = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float())
+    scale = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float().abs())
+    for l in shapes:
+        assert torch.equal(got[l], again[l])                      # deterministic
+        diff = (got[l].float() - want[l]).abs()
+        tol = 1e-5 * float(scale[l].max().clamp(min=1.0))
+        if dtype == torch.bfloat16:
+            tol = _ulp(want[l]) + tol
+        assert bool((diff <= tol).all()), l
+    if kind == "crowded":
+        assert float(want[2].abs().sum()) > 0 and all(
+            float(want[l].abs().sum()) == 0 for l in (3, 4, 5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [35, 320])
+def test_roi_align_bwd_kernel_odd_and_wide_channels(cuda, dtype, c):
+    shapes, rois, li, g = _bwd_case(cuda, c, rois_per_image=40, seed=c)
+    g = g.to(dtype)
+    got = multilevel_roi_align_bwd_cuda(shapes, dtype, rois, li, g)
+    want = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float())
+    scale = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float().abs())
+    for l in shapes:
+        diff = (got[l].float() - want[l]).abs()
+        tol = 1e-5 * float(scale[l].max().clamp(min=1.0))
+        if dtype == torch.bfloat16:
+            tol = _ulp(want[l]) + tol
+        assert bool((diff <= tol).all()), l
+
+
+@pytest.mark.parametrize("kind", ["crowded", "straddle", "outside", "random"])
+def test_roi_tile_lists_kernel_exact(cuda, kind):
+    rng = np.random.RandomState(len(kind))
+    shapes = {l: (320 >> l, 448 >> l) for l in (2, 3, 4, 5)}
+    if kind == "random":
+        _, rois, li, _ = _bwd_case(cuda, 8, rois_per_image=77, seed=5)
+    else:
+        rois = _bwd_rois(kind, rng, rois_per_image=77)
+        li = roi_level_index(rois, (2, 3, 4, 5))
+    got = roi_tile_lists_cuda(shapes, rois, li)
+    torch.cuda.synchronize()
+    assert torch.equal(got, roi_tile_lists_plain(shapes, rois, li))
 
 
 def test_roi_align_function_gradient(cuda):

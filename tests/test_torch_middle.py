@@ -129,3 +129,50 @@ def test_fpn_proposals_match_jax(branch):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
     assert got.valid.sum() > 0
+
+
+def test_pallas_nms_branch_is_one_stacked_call(monkeypatch):
+    """The pallas-nms branch runs the NMS kernel once a call over every
+    (image, level) problem; its keep masks equal the per-level calls' (the
+    JAX package's form, which pads short levels with -inf), and its
+    proposals equal the JAX package's pallas-nms branch in interpret mode."""
+    import mx_rcnn_tpu_torch.ops.cuda.nms as cuda_nms
+    from mx_rcnn_tpu_torch.ops.nms import nms_indices
+    from mx_rcnn_tpu_torch.ops.proposals import _pre_nms_candidates, _stack_padded
+
+    scores, deltas, anchors = _fpn_inputs(12)
+    hw = np.array([[350.0, 420.0], [240.0, 300.0]], np.float32)
+    kw = dict(pre_nms_top_n=120, post_nms_top_n=64, nms_threshold=0.7, min_size=4.0)
+    ts = {l: torch.from_numpy(v) for l, v in scores.items()}
+    td = {l: torch.from_numpy(v) for l, v in deltas.items()}
+    ta = {l: torch.from_numpy(v) for l, v in anchors.items()}
+    image_hw = torch.from_numpy(hw)
+
+    calls = []
+    plain = cuda_nms.nms_keep_sorted_cuda
+    monkeypatch.setattr(cuda_nms, "nms_keep_sorted_cuda",
+                        lambda b, v, t: calls.append(tuple(b.shape)) or plain(b, v, t))
+    got = generate_fpn_proposals(ts, td, ta, image_hw, **kw, nms_impl="pallas")
+    assert calls == [(2, 5, 120, 4)]  # one call; the 40- and 12-box levels padded
+
+    cand = [_pre_nms_candidates(ts[l], td[l], ta[l], image_hw, kw["pre_nms_top_n"],
+                                kw["min_size"]) for l in sorted(ts)]
+    bx = _stack_padded([b for b, _ in cand], 0.0)
+    sc = _stack_padded([s for _, s in cand], -torch.inf)
+    stacked = nms_indices(bx, sc, kw["nms_threshold"], kw["post_nms_top_n"], nms_impl="pallas")
+    for lv in range(bx.shape[1]):
+        one = nms_indices(bx[:, lv], sc[:, lv], kw["nms_threshold"], kw["post_nms_top_n"],
+                          nms_impl="pallas")
+        for a, b in zip(stacked, one):
+            assert torch.equal(a[:, lv], b)
+
+    for i in range(2):
+        want = jax_fpn(
+            {l: jnp.asarray(v[i]) for l, v in scores.items()},
+            {l: jnp.asarray(v[i]) for l, v in deltas.items()},
+            {l: jnp.asarray(v) for l, v in anchors.items()},
+            hw[i, 0], hw[i, 1], **kw, nms_impl="pallas", pallas_interpret=True,
+        )
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
+    assert got.valid.sum() > 0
