@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # on a machine with the card
     python3 chip_smoke.py --cpu-rehearsal # anywhere: tiny shapes, plain ops
-    python3 chip_smoke.py --parent DIR    # also hold B2, B4 against DIR's
+    python3 chip_smoke.py --parent DIR    # also hold B1-B4 against DIR's
 
 Phases (any failure exits non-zero, and the ``ok`` line is printed only
 when every phase passed):
@@ -13,15 +13,22 @@ when every phase passed):
    all started together) and print the seconds and the ptxas summary.
 3. Hold each kernel against its plain torch version on the card at the
    serving shapes of ``r50_fpn_coco`` (800x1344 canvas, batch 2): B1
-   ROIAlign in bf16 (within 1 bf16 ulp) and f32 (atol 1e-5), B3 fused
-   middle bitwise, B4 NMS bitwise at the stacked shape the ``proposals``
+   ROIAlign in bf16 (within 1 bf16 ulp) and f32 (atol 1e-5), two launches
+   bitwise equal; B3 fused middle
+   bitwise at the serving top-k and at k = 2000 (the train pre-NMS
+   top-n); B4 NMS bitwise at the stacked shape the ``proposals``
    path launches (batch 1, 5 levels, n = 1000), at PR 2's one-level shape
    (P2, batch 2) and at n = 2000 (the train pre-NMS top-n); and at its
    train shapes (512 rois per image sampled as the train step samples
    them): B2 ROIAlign backward in bf16 (within 1 bf16 ulp of the plain
    float32 sum, plus the f32 tolerance) and f32 (within 1e-5 of the
    largest gradient of |g|), two launches bitwise equal.  Time all with
-   CUDA events after a warm-up.
+   CUDA events after a warm-up (``ms``, the wrapper's host work
+   included), and the kernels alone (``kernel_ms``): the C entry points
+   a wrapper call reaches, called again with the wrapper's own arguments
+   between CUDA events.  B3 and B4 are also timed alone at 2000
+   candidates, and the time a sweep chunk adds is read from the two
+   sizes; the larger must take longer.
 4. Serve ``r50_fpn_coco`` at full width with random weights from a seed:
    an engine with ``serve.fused_middle=on`` and batch 2 (the ``full``
    program: B1 + B3), and one with ``rpn.nms_impl=pallas`` (the
@@ -38,7 +45,9 @@ when every phase passed):
    after the first (without and with the batch assembly) and peak memory
    are printed.  The last step's B2 inputs are kept; B2 is then held and
    timed on them and on crowded rois (every roi of an image inside one
-   8x8-cell tile of P2), as in phase 3.  B1's launches count ``full`` and
+   8x8-cell tile of P2), as in phase 3; B1 likewise on that step's rois
+   (the train shape) and on edge rois (outside, degenerate, at the level
+   borders, on the last cells).  B1's launches count ``full`` and
    ``train`` both.
 6. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
@@ -48,9 +57,13 @@ when every phase passed):
    relative (B1 is bitwise in f32) and gradients within the CPU parity
    tests' tolerances (backbone 5e-3 by norm, the rest 1e-5 of the largest
    value): B2 and autograd's scatter sum in different orders.
-7. With ``--parent DIR``: build DIR's B2 and B4 sources, require this
-   tree's kernels to give the same bits on phase 3's and phase 5's inputs,
-   and time both in turns (parent, this, this, parent).
+7. With ``--parent DIR``: import DIR's kernel wrappers (``ops/cuda``, its
+   own package beside this one) and build its four kernel sources, then
+   require this tree's kernels to give the same bits as DIR's wrappers on
+   phase 3's and phase 5's inputs (B1 bf16 and f32 on serving, train-step and
+   edge rois; B3 at the serving shape and k = 2000; B2 on its four cases;
+   B4 on its three shapes), and time each in turns (parent, this, this,
+   parent).
 8. Print the card's line, the ``kernels`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -107,6 +120,38 @@ class Clock:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
+
+    def kernel_ms(self, fn, build=None) -> float:
+        """Device time of one call of the kernel wrapper ``fn`` in its
+        kernels alone, without the wrapper's host work: every C entry point
+        the call reaches is called again with the wrapper's own arguments
+        between CUDA events (``utils/profiling.py::entry_ms``).  ``build``
+        is the ``ops/cuda/_build`` module of the tree whose wrapper ``fn``
+        calls, this tree's when None; its cache of loaded entry points is
+        the set the call may reach.  NaN on the CPU."""
+        if not self.cuda:
+            return float("nan")
+        from mx_rcnn_tpu_torch.ops.cuda import _build
+        from mx_rcnn_tpu_torch.utils.profiling import entry_ms
+
+        fn()
+        return entry_ms(fn, (build or _build)._ENTRIES.values())
+
+
+def chunk_step_us(name: str, small: dict, large: dict) -> float:
+    """The time a sweep chunk adds, in us, read from the kernel-alone times
+    of a problem of ``small["k"]`` and of ``large["k"]`` candidates: the
+    larger adds ceil(k/64) chunk steps, but also 4x the word tiles, so it
+    is an upper estimate.  Raises when the larger problem is not slower,
+    since then there is no step to read."""
+    more = -(-large["k"] // 64) - -(-small["k"] // 64)
+    if not large["kernel_ms"] > small["kernel_ms"]:
+        if np.isnan(small["kernel_ms"]):  # the CPU rehearsal times no kernel
+            return float("nan")
+        raise AssertionError(
+            f"{name} alone: k = {large['k']} took {large['kernel_ms']:.4f} ms, not more than "
+            f"k = {small['k']}'s {small['kernel_ms']:.4f} ms")
+    return 1e3 * (large["kernel_ms"] - small["kernel_ms"]) / more
 
 
 def nbytes(*tensors) -> int:
@@ -167,25 +212,46 @@ def kernel_phase(dev: torch.device, rehearsal: bool, seed: int) -> dict:
               .to(torch.bfloat16).to(dev) for l, a in anchors.items()}
     image_hw = torch.tensor([[h, w], [h - 176, w - 320]], dtype=torch.float32, device=dev)
 
-    # B3: the fused middle over stacked per-level top-k candidates.
-    cand = [_topk_candidates(scores[l], deltas[l], anchors[l], rpn.test_pre_nms_top_n)
-            for l in sorted(anchors)]
-    sc_k = _stack_padded([s for s, _, _ in cand], -torch.inf).float()
-    dl_k = _stack_padded([d for _, d, _ in cand], 0.0).float()
-    an_k = _stack_padded([a for _, _, a in cand], 0.0).float()
-    args = (an_k, dl_k, sc_k, image_hw, rpn.min_size, rpn.nms_threshold)
-    got, want = fused_middle_levels(*args), fused_middle_levels_plain(*args)
-    same = all(torch.equal(x, y) for x, y in zip(got, want))
-    keep = got[2]
-    valid = torch.isfinite(got[1])
-    flops = 40 * sc_k.numel() + IOU_FLOPS * greedy_pairs(keep, valid)
+    # B3: the fused middle over stacked per-level top-k candidates, at the
+    # serving top-k and at the train pre-NMS top-k (k = 2000).
+    def middle_args(top_n):
+        cand = [_topk_candidates(scores[l], deltas[l], anchors[l], top_n)
+                for l in sorted(anchors)]
+        return (_stack_padded([a for _, _, a in cand], 0.0).float(),
+                _stack_padded([d for _, d, _ in cand], 0.0).float(),
+                _stack_padded([s for s, _, _ in cand], -torch.inf).float(),
+                image_hw, rpn.min_size, rpn.nms_threshold)
+
+    middle = {"serving": middle_args(rpn.test_pre_nms_top_n),
+              "k2000": middle_args(rpn.train_pre_nms_top_n)}
+    res = {}
+    for key, args in middle.items():
+        got, want = fused_middle_levels(*args), fused_middle_levels_plain(*args)
+        valid = torch.isfinite(got[1])
+        res[key] = dict(
+            same=all(torch.equal(x, y) for x, y in zip(got, want)),
+            err=float((got[0] - want[0]).abs().max()),
+            ms=clock.ms(lambda: fused_middle_levels(*args), iters),
+            kernel_ms=clock.kernel_ms(lambda: fused_middle_levels(*args)),
+            flops=40 * args[2].numel() + IOU_FLOPS * greedy_pairs(got[2], valid),
+            bytes=nbytes(*args[:4], *got), k=args[2].shape[-1])
+    sv, k2 = res["serving"], res["k2000"]
+    # The sweep's sequential floor is ceil(k/64) chunk steps.
+    chunk_us = chunk_step_us("fused middle", sv, k2)
+    an_k = middle["serving"][0]
     out["fused_middle"] = dict(
-        match=same, max_abs_err=float((got[0] - want[0]).abs().max()),
-        ms=clock.ms(lambda: fused_middle_levels(*args), iters),
-        plain_ms=clock.ms(lambda: fused_middle_levels_plain(*args), plain_iters),
-        bound=bound(nbytes(an_k, dl_k, sc_k, image_hw, *got), flops),
-        shape=f"B={b} L={sc_k.shape[1]} k={sc_k.shape[2]}",
+        match=sv["same"] and k2["same"], max_abs_err=max(sv["err"], k2["err"]),
+        ms=sv["ms"], kernel_ms=sv["kernel_ms"],
+        plain_ms=clock.ms(lambda: fused_middle_levels_plain(*middle["serving"]), plain_iters),
+        bound=bound(sv["bytes"], sv["flops"]),
+        extra=dict(ms_k2000=k2["ms"], kernel_ms_k2000=k2["kernel_ms"],
+                   bound_ms_k2000=bound(k2["bytes"], k2["flops"])[0], chunk_step_us=chunk_us,
+                   sequential_floor_ms=1e-3 * chunk_us * -(-sv["k"] // 64)),
+        inputs=middle,
+        shape=f"B={b} L={an_k.shape[1]} k={an_k.shape[2]} (two launches a call)",
     )
+    log(f"[kernel:fused_middle] k={k2['k']}: match={k2['same']} ms={k2['ms']:.4f} "
+        f"kernel_ms={k2['kernel_ms']:.4f}; a chunk step <= {chunk_us:.3f} us")
     # The rois B1 pools: these inputs' proposals, as the full path makes them.
     rois = generate_fpn_proposals(
         scores, deltas, anchors, image_hw, rpn.test_pre_nms_top_n,
@@ -217,28 +283,27 @@ def kernel_phase(dev: torch.device, rehearsal: bool, seed: int) -> dict:
     for key, a in nms_shapes.items():
         k1, k2 = nms_keep_sorted_cuda(*a), nms_keep_sorted_plain(*a)
         nms[key] = dict(
-            mismatched=int((k1 != k2).sum()), keep=k1,
+            mismatched=int((k1 != k2).sum()), keep=k1, k=a[0].shape[-2],
             ms=clock.ms(lambda: nms_keep_sorted_cuda(*a), iters),
             bound=bound(nbytes(a[0], a[1], k1), IOU_FLOPS * greedy_pairs(k1, a[1])),
         )
     mismatched = sum(v["mismatched"] for v in nms.values())
     stacked = nms_shapes["stacked"]
-    # The sweep's sequential floor is n/64 chunk steps.  The time a chunk
-    # step adds is read from the n = 1000 and n = 2000 launches: 16 more
-    # chunks, and 4x the mask tiles, so it is an upper estimate.
-    chunks = {k: -(-a[0].shape[-2] // 64) for k, a in nms_shapes.items()}
-    more = chunks["n2000"] - chunks["stacked"]
-    chunk_us = (1e3 * (nms["n2000"]["ms"] - nms["stacked"]["ms"]) / more if more
-                else float("nan"))
+    # The sweep's sequential floor is ceil(n/64) chunk steps.
+    for key, a in nms_shapes.items():
+        nms[key]["kernel_ms"] = clock.kernel_ms(lambda: nms_keep_sorted_cuda(*a))
+    chunk_us = chunk_step_us("nms", nms["stacked"], nms["n2000"])
     out["nms"] = dict(
         match=mismatched == 0, max_abs_err=float(mismatched > 0),
-        ms=nms["stacked"]["ms"],
+        ms=nms["stacked"]["ms"], kernel_ms=nms["stacked"]["kernel_ms"],
         plain_ms=clock.ms(lambda: nms_keep_sorted_plain(*stacked), plain_iters),
         bound=nms["stacked"]["bound"],
         extra=dict(ms_one_level=nms["one_level"]["ms"],
+                   kernel_ms_one_level=nms["one_level"]["kernel_ms"],
                    bound_ms_one_level=nms["one_level"]["bound"][0],
-                   ms_n2000=nms["n2000"]["ms"], chunk_step_us=chunk_us,
-                   sequential_floor_ms=1e-3 * chunk_us * chunks["stacked"]),
+                   ms_n2000=nms["n2000"]["ms"], kernel_ms_n2000=nms["n2000"]["kernel_ms"],
+                   chunk_step_us=chunk_us,
+                   sequential_floor_ms=1e-3 * chunk_us * -(-nms["stacked"]["k"] // 64)),
         inputs=nms_shapes,
         shape=f"B=1 L={sboxes.shape[1]} n={sboxes.shape[2]} (stacked, one launch)",
     )
@@ -251,23 +316,69 @@ def kernel_phase(dev: torch.device, rehearsal: bool, seed: int) -> dict:
     for dt, name in ((torch.bfloat16, "roi_align"), (torch.float32, "roi_align_f32")):
         pyr = {l: torch.randn((b, h >> l, w >> l, c), generator=g).to(dt).to(dev)
                for l in range(2, 6)}
-        got = multilevel_roi_align_cuda(pyr, rois, s, sr)
-        want = multilevel_roi_align_plain(pyr, rois, s, sr)
-        diff = (got.float() - want.float()).abs()
-        if dt == torch.bfloat16:
-            same = bool((diff <= bf16_ulp(want.float())).all())
-        else:
-            same = bool((diff <= 1e-5).all())
-        flops = got.numel() * (sr * sr * 14 + 1)
-        out[name] = dict(
-            match=same, max_abs_err=float(diff.max()),
-            ms=clock.ms(lambda: multilevel_roi_align_cuda(pyr, rois, s, sr), iters),
-            plain_ms=clock.ms(lambda: multilevel_roi_align_plain(pyr, rois, s, sr),
-                              plain_iters),
-            bound=bound(nbytes(*pyr.values(), rois, got), flops),
-            shape=f"B={b} R={rois.shape[1]} C={c} {str(dt).split('.')[-1]}",
-        )
+        res = hold_fwd(pyr, rois, s, sr, clock, iters, plain_iters)
+        out[name] = dict(**res, inputs={"serving": (pyr, rois, s, sr)})
     return out
+
+
+def fwd_within_tolerance(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """B1's tolerance against its plain version: one bf16 ulp in bf16,
+    1e-5 in f32."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        return bool((diff <= bf16_ulp(want.float())).all())
+    return bool((diff <= 1e-5).all())
+
+
+def hold_fwd(pyr, rois, s: int, sr: int, clock, iters: int, plain_iters: int) -> dict:
+    """B1 on these inputs against its plain version (within tolerance) and
+    two launches bitwise equal; timed, the kernel alone too."""
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_cuda,
+        multilevel_roi_align_plain,
+    )
+
+    got = multilevel_roi_align_cuda(pyr, rois, s, sr)
+    again = multilevel_roi_align_cuda(pyr, rois, s, sr)
+    want = multilevel_roi_align_plain(pyr, rois, s, sr)
+    deterministic = torch.equal(got, again)
+    flops = got.numel() * (sr * sr * 14 + 1)
+    return dict(
+        match=fwd_within_tolerance(got, want) and deterministic, deterministic=deterministic,
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=clock.ms(lambda: multilevel_roi_align_cuda(pyr, rois, s, sr), iters),
+        kernel_ms=clock.kernel_ms(lambda: multilevel_roi_align_cuda(pyr, rois, s, sr)),
+        plain_ms=clock.ms(lambda: multilevel_roi_align_plain(pyr, rois, s, sr), plain_iters),
+        bound=bound(nbytes(*pyr.values(), rois, got), flops),
+        shape=f"B={rois.shape[0]} R={rois.shape[1]} C={got.shape[-1]} "
+              f"{str(got.dtype).split('.')[-1]}",
+    )
+
+
+def edge_rois(b: int, r: int, h: int, w: int, seed: int) -> torch.Tensor:
+    """(b, r, 4) rois on an h x w canvas at B1's edges, a quarter of each
+    kind: wholly or partly outside the image; degenerate (zero, inverted,
+    under one cell); sized at the FPN level thresholds (112, 224, 448 px
+    and the 38-cell extent bound) so that they straddle level borders;
+    and on the map's last cells."""
+    rng = np.random.RandomState(seed)
+    q = r // 4
+    xy = rng.uniform(0, [w, h], (b, r, 2))
+    wh = rng.uniform(1, 300, (b, r, 2))
+    out = np.concatenate([xy, xy + wh], -1)
+    shift = rng.choice([-1.0, 1.0], (b, q, 1)) * rng.uniform(50, 2 * max(h, w), (b, q, 1))
+    out[:, :q] += shift                                              # outside
+    d = out[:, q:2 * q]
+    d[:, 0::3, 2:] = d[:, 0::3, :2]                                  # zero size
+    d[:, 1::3, 2:] = d[:, 1::3, :2] - rng.uniform(1, 20, (b, d[:, 1::3].shape[1], 2))
+    d[:, 2::3, 2:] = d[:, 2::3, :2] + rng.uniform(0, 3, (b, d[:, 2::3].shape[1], 2))
+    side = rng.choice([112.0, 224.0, 448.0, 38.0 * 16, 38.0 * 32], (b, q, 1))
+    side = side * rng.uniform(0.98, 1.02, (b, q, 2))
+    ctr = rng.uniform(0, [w, h], (b, q, 2))
+    out[:, 2 * q:3 * q] = np.concatenate([ctr - side / 2, ctr + side / 2], -1)  # straddle
+    far = np.array([w, h], np.float64)
+    out[:, 3 * q:, 2:] = far + rng.uniform(-2, 2, (b, r - 3 * q, 2))  # last cells
+    return torch.tensor(out, dtype=torch.float32)
 
 
 def synthetic_batch(cfg, dev, seed: int):
@@ -352,6 +463,7 @@ def hold_bwd(args, clock, iters: int, plain_iters: int) -> dict:
     return dict(
         match=same and deterministic, deterministic=deterministic, max_abs_err=err,
         ms=clock.ms(lambda: multilevel_roi_align_bwd_cuda(*args), iters),
+        kernel_ms=clock.kernel_ms(lambda: multilevel_roi_align_bwd_cuda(*args)),
         plain_ms=clock.ms(lambda: multilevel_roi_align_bwd_plain(*args), plain_iters),
         bound=bound(nbytes(gd, rois, level_idx, *got.values()), 3 * taps * c),
         shape=f"B={b} R={r} C={c} {str(dt).split('.')[-1]}",
@@ -388,13 +500,43 @@ def backward_cases_phase(dev, rehearsal: bool, seed: int, step_args, kernels: di
         res = hold_bwd(args, clock, iters, plain_iters)
         log(f"[kernel:roi_align_bwd:{name}] {res['shape']}: match={res['match']} "
             f"max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
+            f"kernel_ms={res['kernel_ms']:.4f} "
             f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound'][0]:.4f}")
         k["match"] = k["match"] and res["match"]
         k.setdefault("extra", {}).update({f"ms_{name}": res["ms"],
+                                          f"kernel_ms_{name}": res["kernel_ms"],
                                           f"plain_ms_{name}": res["plain_ms"],
                                           f"bound_ms_{name}": res["bound"][0],
                                           f"max_abs_err_{name}": res["max_abs_err"]})
         k.setdefault("cases", {})[name] = args
+
+
+def forward_cases_phase(dev, rehearsal: bool, seed: int, step_args, kernels: dict) -> None:
+    """Phase 5b: B1 on the rois of a real train step (captured in the train
+    phase; the train shape, 512 rois an image) and on edge rois, in bf16
+    and f32 over phase 3's pyramids, each held against its plain version,
+    two launches bitwise equal, and timed."""
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    rois = step_args[2]
+    b, r = rois.shape[:2]
+    for name in ("roi_align", "roi_align_f32"):
+        k = kernels[name]
+        pyr, _, s, sr = k["inputs"]["serving"]
+        h, w = (x << 2 for x in pyr[2].shape[1:3])
+        k["inputs"]["step"] = (pyr, rois, s, sr)
+        k["inputs"]["edge"] = (pyr, edge_rois(b, r, h, w, seed + 7).to(dev), s, sr)
+        for case in ("step", "edge"):
+            res = hold_fwd(*k["inputs"][case], clock, iters, plain_iters)
+            log(f"[kernel:{name}:{case}] {res['shape']}: match={res['match']} "
+                f"max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
+                f"kernel_ms={res['kernel_ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+                f"bound_ms={res['bound'][0]:.4f}")
+            k["match"] = k["match"] and res["match"]
+            k.setdefault("extra", {}).update({
+                f"ms_{case}": res["ms"], f"kernel_ms_{case}": res["kernel_ms"],
+                f"plain_ms_{case}": res["plain_ms"], f"bound_ms_{case}": res["bound"][0],
+                f"max_abs_err_{case}": res["max_abs_err"]})
 
 
 def check_response(res: dict, height: int, width: int) -> None:
@@ -670,95 +812,102 @@ KERNELS = {
 }
 
 
-def parent_phase(dev, parent: str, kernels: dict) -> dict:
-    """Build B2 and B4 from another tree's sources (``parent``, e.g. the
-    parent commit unpacked by ``git archive``) and hold this tree's kernels
-    bitwise against them on this run's inputs, timed in turns (parent,
-    this, this, parent).  The parent's C entry points are PR 2's: B4's has
-    this tree's signature, B2's lacks the list scratch and the ``vec``
-    flag."""
-    import ctypes
+PKG = "mx_rcnn_tpu_torch"
 
-    from mx_rcnn_tpu_torch.ops.cuda import _build
+
+def import_tree(root: str, modules) -> dict:
+    """Import ``modules`` (names under the package) from the package in the
+    tree ``root``, beside this tree's: this tree's modules leave
+    ``sys.modules`` while ``root``'s load, and come back after.  Raises
+    when a module does not come from ``root``."""
+    import importlib
+
+    root = os.path.abspath(root)
+    ours = lambda k: k == PKG or k.startswith(PKG + ".")  # noqa: E731
+    mine = {k: sys.modules.pop(k) for k in [k for k in sys.modules if ours(k)]}
+    sys.path.insert(0, root)
+    try:
+        loaded = {m: importlib.import_module(f"{PKG}.{m}") for m in modules}
+    finally:
+        sys.path.remove(root)
+        for k in [k for k in sys.modules if ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(mine)
+    for m, mod in loaded.items():
+        if not os.path.abspath(mod.__file__).startswith(root + os.sep):
+            raise AssertionError(f"{PKG}.{m} came from {mod.__file__}, not from {root}")
+    return loaded
+
+
+def parent_phase(dev, parent: str, kernels: dict) -> dict:
+    """Hold this tree's kernels bitwise against another tree's (``parent``,
+    e.g. the parent commit unpacked by ``git archive``) on this run's
+    inputs, timed in turns (parent, this, this, parent), as a call and as
+    the kernels alone: B1 in bf16 and f32 on serving, train-step and edge
+    rois, B3 at the serving shape and at k = 2000, B2 on its four cases,
+    B4 on its three shapes.  The parent's kernels are reached through its
+    own wrappers (``ops/cuda``), which set up its own C entry points; its
+    sources are built first, and a failed build raises."""
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
     from mx_rcnn_tpu_torch.ops.cuda.nms import nms_keep_sorted_cuda
     from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
-        _DTYPES,
-        TILE,
-        _grad_pyramid,
-        _GradPyramid,
         multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
     )
 
-    csrc = os.path.join(os.path.abspath(parent), "mx_rcnn_tpu_torch", "csrc")
-    out_dir = os.path.join(_build.BUILD_DIR, "parent")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name in ("nms", "roi_align_bwd"):
-        lib_path = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc, "-o", lib_path,
-               os.path.join(csrc, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib_path)
-    libs = {}
-    for name, (proc, lib_path) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise AssertionError(f"parent {name}.cu did not build:\n{text}")
-        libs[name] = ctypes.CDLL(lib_path)
+    mods = import_tree(parent, ("ops.cuda._build", "ops.cuda.roi_align", "ops.cuda.middle",
+                                "ops.cuda.nms"))
+    build = mods["ops.cuda._build"]
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"[parent] {parent}: built {build.KERNELS} in {time.perf_counter() - t0:.1f} s")
+    wrappers = {
+        "roi_align": (mods["ops.cuda.roi_align"].multilevel_roi_align_cuda,
+                      multilevel_roi_align_cuda),
+        "roi_align_bwd": (mods["ops.cuda.roi_align"].multilevel_roi_align_bwd_cuda,
+                          multilevel_roi_align_bwd_cuda),
+        "fused_middle": (mods["ops.cuda.middle"].fused_middle_levels, fused_middle_levels),
+        "nms": (mods["ops.cuda.nms"].nms_keep_sorted_cuda, nms_keep_sorted_cuda),
+    }
     clock = Clock(dev)
-    stream = _build.stream_ptr(dev)
 
-    nms_fn = libs["nms"].nms_keep_sorted
-    nms_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                               ctypes.c_void_p]
-    nms_fn.restype = ctypes.c_int
-
-    def parent_nms(sboxes, svalid, thresh):
-        n = sboxes.shape[-2]
-        boxes = sboxes.reshape(-1, n, 4).contiguous()
-        valid = svalid.reshape(-1, n).to(torch.uint8).contiguous()
-        mask = torch.empty((boxes.shape[0], n, -(-n // 64)), dtype=torch.int64, device=dev)
-        keep = torch.empty((boxes.shape[0], n), dtype=torch.uint8, device=dev)
-        rc = nms_fn(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
-                    boxes.shape[0], n, float(thresh), stream)
-        if rc != 0:
-            raise AssertionError(f"parent nms_keep_sorted: CUDA error {rc}")
-        return keep.bool().reshape(svalid.shape)
-
-    bwd_fn = libs["roi_align_bwd"].roi_align_backward
-    bwd_fn.argtypes = [_GradPyramid] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    bwd_fn.restype = ctypes.c_int
-
-    def parent_bwd(shapes, dt, rois, level_idx, g, sr):
-        b, r = rois.shape[:2]
-        grads, pyr = _grad_pyramid(shapes, b, g.shape[-1], dt, dev, TILE)
-        rc = bwd_fn(pyr, rois.data_ptr(), level_idx.data_ptr(), g.data_ptr(), b, r,
-                    g.shape[-1], g.shape[2], sr, _DTYPES[dt], stream)
-        if rc != 0:
-            raise AssertionError(f"parent roi_align_backward: CUDA error {rc}")
-        return grads
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        if isinstance(a, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+        return torch.equal(a, b)
 
     def turns(old, new, args, iters=20):
-        t = [clock.ms(lambda: old(*args), iters), clock.ms(lambda: new(*args), iters),
-             clock.ms(lambda: new(*args), iters), clock.ms(lambda: old(*args), iters)]
-        return {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]]}
+        """Parent, this, this, parent: a call's event time (the wrapper's
+        host work included) and, in the same order, the kernels alone."""
+        t = [clock.ms(lambda: f(*args), iters) for f in (old, new, new, old)]
+        k = [clock.kernel_ms(lambda: f(*args), build if f is old else None)
+             for f in (old, new, new, old)]
+        return {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]],
+                "parent_kernel_ms": [k[0], k[3]], "kernel_ms": [k[1], k[2]]}
 
-    res = {}
-    for key, args in kernels["nms"]["inputs"].items():
-        same = torch.equal(parent_nms(*args), nms_keep_sorted_cuda(*args))
-        res[f"nms:{key}"] = {"bitwise": same, **turns(parent_nms, nms_keep_sorted_cuda, args)}
+    cases = []
+    for name in ("roi_align", "roi_align_f32"):
+        for key, args in kernels[name]["inputs"].items():
+            cases.append((f"{name}:{key}", "roi_align", args))
+    for key, args in kernels["fused_middle"]["inputs"].items():
+        cases.append((f"fused_middle:{key}", "fused_middle", args))
     bwd_cases = {"spread": kernels["roi_align_bwd"]["inputs"],
                  "spread_f32": kernels["roi_align_bwd_f32"]["inputs"],
                  **kernels["roi_align_bwd"].get("cases", {})}
     for key, args in bwd_cases.items():
-        old, new = parent_bwd(*args), multilevel_roi_align_bwd_cuda(*args)
-        same = all(torch.equal(old[l], new[l]) for l in old)
-        res[f"roi_align_bwd:{key}"] = {
-            "bitwise": same, **turns(parent_bwd, multilevel_roi_align_bwd_cuda, args)}
-    for key, r in res.items():
-        log(f"[parent:{key}] bitwise={r['bitwise']} parent ms {r['parent_ms']} "
-            f"this tree ms {r['ms']}")
+        cases.append((f"roi_align_bwd:{key}", "roi_align_bwd", args))
+    for key, args in kernels["nms"]["inputs"].items():
+        cases.append((f"nms:{key}", "nms", args))
+    res = {}
+    for key, kernel, args in cases:
+        old, new = wrappers[kernel]
+        res[key] = {"bitwise": same(old(*args), new(*args)), **turns(old, new, args)}
+        r = {k: [round(x, 4) for x in v] for k, v in res[key].items() if k != "bitwise"}
+        log(f"[parent:{key}] bitwise={res[key]['bitwise']} parent ms {r['parent_ms']} this "
+            f"tree ms {r['ms']}; kernels alone: parent {r['parent_kernel_ms']} this tree "
+            f"{r['kernel_ms']}")
     return res
 
 
@@ -768,8 +917,8 @@ def main() -> int:
                     help="tiny shapes on the CPU through the plain versions; never prints ok")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
-                    help="another tree (e.g. the parent commit from git archive): hold B2 "
-                         "and B4 bitwise against its kernels and time both in turns")
+                    help="another tree (e.g. the parent commit from git archive): hold B1, "
+                         "B2, B3 and B4 bitwise against its kernels and time each in turns")
     args = ap.parse_args()
 
     if not args.cpu_rehearsal and not torch.cuda.is_available():
@@ -806,12 +955,15 @@ def main() -> int:
     kernels.update(backward_phase(dev, args.cpu_rehearsal, args.seed))
     for name, k in kernels.items():
         log(f"[kernel:{name}] {k['shape']}: match={k['match']} max_abs_err={k['max_abs_err']:.3g} "
-            f"ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} bound_ms={k['bound'][0]:.4f} "
+            f"ms={k['ms']:.4f} kernel_ms={k['kernel_ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+            f"bound_ms={k['bound'][0]:.4f} "
             f"({k['bound'][1]})")
     paths = serving_phase(dev, args.cpu_rehearsal, args.seed)
     paths["train"] = train_phase(dev, args.cpu_rehearsal, args.seed)
     backward_cases_phase(dev, args.cpu_rehearsal, args.seed, paths["train"]["step_args"],
                          kernels)
+    forward_cases_phase(dev, args.cpu_rehearsal, args.seed, paths["train"]["step_args"],
+                        kernels)
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)
@@ -824,7 +976,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths[p]["launches"][name] for p in on),
             "match": k["match"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+            "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+            "bound_by": k["bound"][1],
             "library_ms": None, "shape": k["shape"], **k.get("extra", {}),
         })
     failed = [name for name, k in kernels.items() if not k["match"]]

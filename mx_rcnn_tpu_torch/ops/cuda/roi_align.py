@@ -5,7 +5,9 @@ B1 replaces ``mx_rcnn_tpu/ops/pallas/roi_align.py::multilevel_roi_align_pallas``
 the kernel behind ``rcnn.roi_align_impl="pallas"``.  Batched contract:
 pyramid {level: (B, H_l, W_l, C)} (NHWC, consecutive levels), rois
 (B, R, 4) f32 in image coordinates -> (B, R, S, S, C) in the feature
-dtype (float32 or bfloat16).  The batch folds into one launch.
+dtype (float32 or bfloat16).  The batch folds into one launch: a block
+a roi, whose tap tables are built once in shared memory, eight channels a
+thread (one where C is not a multiple of 8; ``csrc/roi_align.cu``).
 
 B2 replaces ``multilevel_roi_align_bwd_pallas``, the backward behind
 ``rcnn.roi_align_bwd_impl="pallas"``: the cotangent (B, R, S, S, C) ->
@@ -40,6 +42,7 @@ from mx_rcnn_tpu_torch.ops.roi_align import (
 )
 
 _MAX_LEVELS = 8
+FWD_MAX_SAMPLES = 64  # B1's tap tables: output_size * sampling_ratio an axis
 TILE = 8  # B2's output tile edge in cells (csrc/roi_align_bwd.cu kTile)
 BWD_GROUPS = 16  # B2's 8-channel groups a block: a 128-channel slab
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -135,20 +138,27 @@ def multilevel_roi_align_cuda(
     if level_idx is None:
         level_idx = roi_level_index(rois, levels)
     _check_level_idx(level_idx, rois)
+    if output_size * sampling_ratio > FWD_MAX_SAMPLES or min(output_size, sampling_ratio) < 1:
+        raise ValueError(f"roi_align kernel: output_size * sampling_ratio must be 1.."
+                         f"{FWD_MAX_SAMPLES}, got {output_size} * {sampling_ratio}")
     dtype = feature_pyramid[levels[0]].dtype
     out = torch.empty((b, r, output_size, output_size, c), dtype=dtype, device=rois.device)
 
     pyr = _Pyramid()
     for i, l in enumerate(levels):
         f = feature_pyramid[l]
+        if f.shape[1] * f.shape[2] * c >= 2**31:
+            raise ValueError(f"roi_align kernel: level {l} holds 2**31 or more elements an image")
         pyr.ptr[i] = f.data_ptr()
         pyr.h[i], pyr.w[i], pyr.level[i] = f.shape[1], f.shape[2], l
     pyr.num_levels = len(levels)
+    # Eight channels a thread: C a multiple of 8 and 16-byte aligned rows.
+    vec = c % 8 == 0 and all(p % 16 == 0 for p in (*pyr.ptr[:len(levels)], out.data_ptr()))
 
     fn = _build.entry("roi_align", "roi_align_forward",
-                      [_Pyramid] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                      [_Pyramid] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     rc = fn(pyr, rois.data_ptr(), level_idx.data_ptr(), out.data_ptr(), b * r, r, c,
-            output_size, sampling_ratio, _DTYPES[dtype], _build.stream_ptr(rois.device))
+            output_size, sampling_ratio, _DTYPES[dtype], int(vec), _build.stream_ptr(rois.device))
     _build.check("roi_align", rc, "roi_align_forward")
     multilevel_roi_align_cuda.launches += 1
     return out

@@ -88,3 +88,46 @@ def traced_breakdown(fn, calls: int = 2) -> dict:
         "device_ms_by_stage": dict(sorted(by_stage.items(), key=lambda kv: -kv[1])),
         "device_ms_top_kernels": dict((k[:90], v) for k, v in top),
     }
+
+
+def entry_ms(call, entries, iters: int = 20) -> float:
+    """Device time of the kernels that one ``call()`` of a kernel wrapper
+    launches, without the wrapper's host work.  ``entries`` are the ctypes
+    C entry points the call may reach (``_build._ENTRIES.values()`` once
+    the call has run).  Each of them, when the wrapper calls it with its
+    own arguments, is called ``iters`` times more with the same arguments
+    between two CUDA events on the current stream, from its ``errcheck``
+    hook, so the wrapper's tensors and scratch are still alive; the means
+    are summed over the entry points the call reached.  An entry point
+    called without arguments is a query, not a launch, and is not timed.
+    Returns ms."""
+    spans, replaying = [], []
+
+    def replay(rc, fn, args):
+        if replaying or not args or rc != 0:
+            return rc
+        replaying.append(fn)
+        try:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            codes = {fn(*args) for _ in range(iters)}
+            end.record()
+            end.synchronize()
+        finally:
+            replaying.clear()
+        if codes != {0}:
+            raise RuntimeError(f"{fn.__name__}: CUDA error codes {codes} in the replays")
+        spans.append(start.elapsed_time(end) / iters)
+        return rc
+
+    entries = list(entries)
+    for fn in entries:
+        fn.errcheck = replay
+    try:
+        call()
+    finally:
+        for fn in entries:
+            del fn.errcheck
+    if not spans:
+        raise RuntimeError("the call launched no kernel through the given entry points")
+    return sum(spans)

@@ -5,11 +5,15 @@ import, so every worker collects the same tests).  On the card:
 
     python -m pytest tests/test_torch_kernels.py -m gpu
 
-B3 (fused middle) and B4 (NMS) are bitwise, B4 up to n = 2000 and over
-several problems in one launch; B2's binning pass gives exactly the plain
-``roi_tile_lists_plain`` bitsets; B1 (ROIAlign) is bitwise in
-float32 and within one bf16 ulp in bfloat16 (it sums in the plain
-version's order, and the build keeps multiplies and adds apart).  B2
+B3 (fused middle) and B4 (NMS) are bitwise, both up to 2000 candidates
+and over several problems in one call, B3's suppression words equal to
+the plain ``suppression_words_plain`` on the tiles it writes; B2's
+binning pass gives exactly the plain ``roi_tile_lists_plain`` bitsets;
+B1 (ROIAlign) is bitwise in float32 and within one bf16 ulp in bfloat16
+(it sums in the plain version's order, and the build keeps multiplies
+and adds apart), at channel counts on both its paths (8 channels a
+thread, one for the tail), on edge rois, at other sampling ratios, and
+with the same bits from two launches.  B2
 (ROIAlign backward) sums in another order than the plain ``index_add_``:
 float32 within 1e-5 of the largest gradient of ``|g|`` (the sum of the
 absolute contributions), bfloat16 within one bf16 ulp of the plain
@@ -23,7 +27,13 @@ import pytest
 import torch
 
 from mx_rcnn_tpu_torch.geometry import snap
-from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels, fused_middle_levels_plain
+from mx_rcnn_tpu_torch.ops.cuda.middle import (
+    MAX_CANDIDATES,
+    fused_middle_levels,
+    _launch,
+    fused_middle_levels_plain,
+    suppression_words_plain,
+)
 from mx_rcnn_tpu_torch.ops.cuda.nms import (
     nms_keep_sorted_cuda,
     nms_keep_sorted_plain,
@@ -305,3 +315,136 @@ def test_wrappers_refuse_bad_inputs(cuda):
         fused_middle_levels(torch.zeros(1, 1, 4, 4, device=cuda, dtype=torch.float64),
                             torch.zeros(1, 1, 4, 4, device=cuda),
                             torch.zeros(1, 1, 4, device=cuda), torch.zeros(1, 2, device=cuda))
+
+
+def _middle_case(rng, b, levels, k, all_inf_level=False):
+    """Top-k ordered candidates (b, levels, k) on a 400 px canvas: tied
+    snapped scores, a -inf tail on the last level, optionally a level of
+    -inf only; and two image sizes."""
+    a = max(k + 64, 2 * k)
+    anchors = torch.tensor(_boxes(rng, (b, levels, a)), device="cuda")
+    deltas = torch.tensor(rng.randn(b, levels, a, 4) * 0.3, dtype=torch.float32, device="cuda")
+    scores = snap(torch.tensor(np.round(rng.rand(b, levels, a) * 20) / 20, dtype=torch.float32,
+                               device="cuda"))
+    ts, ti = top_k(scores, k)
+    idx = ti[..., None].expand(b, levels, k, 4)
+    an, dl = torch.gather(anchors, 2, idx), torch.gather(deltas, 2, idx)
+    ts[:, -1, k - k // 4:] = -torch.inf
+    if all_inf_level:
+        ts[-1, 0] = -torch.inf
+    hw = torch.tensor([[300.0, 420.0], [400.0, 250.0]][:b], device="cuda")
+    return an, dl, ts, hw
+
+
+@pytest.mark.parametrize("min_size", [0.0, 8.0])
+@pytest.mark.parametrize("problems", [1, 10])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 127, 1000, 2000])
+def test_fused_middle_kernel_bitwise_cases(cuda, k, problems, min_size):
+    b, levels = (1, 1) if problems == 1 else (2, 5)
+    an, dl, ts, hw = _middle_case(np.random.RandomState(k + problems), b, levels, k,
+                                  all_inf_level=problems > 1)
+    before = fused_middle_levels.launches
+    boxes, masked, keep, words = _launch(an, dl, ts, hw, min_size, 0.7)  # the words too
+    torch.cuda.synchronize()
+    assert fused_middle_levels.launches == before + 1  # one call, two launches
+    want = fused_middle_levels_plain(an, dl, ts, hw, min_size, 0.7)
+    for g, w in zip((boxes, masked, keep), want):
+        assert torch.equal(g, w)
+    if problems > 1:
+        assert not keep[-1, 0].any()
+    # The words of the tiles at or above the diagonal are the plain ones.
+    plain = suppression_words_plain(want[0], torch.isfinite(want[1]), 0.7)
+    cb = plain.shape[-1]
+    row_chunk = torch.arange(k, device=cuda) // 64
+    written = torch.arange(cb, device=cuda)[None, :] >= row_chunk[:, None]
+    assert torch.equal(torch.where(written, words, 0), plain)
+
+
+def test_fused_middle_kernel_refuses_too_many_candidates(cuda):
+    k = MAX_CANDIDATES + 1
+    z = torch.zeros(1, 1, k, 4, device=cuda)
+    with pytest.raises(ValueError):
+        fused_middle_levels(z, z, torch.zeros(1, 1, k, device=cuda), torch.ones(1, 2, device=cuda))
+
+
+def _pyramid(rng, c, dtype, canvas=(320, 448)):
+    return {l: torch.tensor(rng.randn(2, canvas[0] >> l, canvas[1] >> l, c),
+                            dtype=torch.float32, device="cuda").to(dtype) for l in (2, 3, 4, 5)}
+
+
+def _random_rois(rng, n=150):
+    xy = rng.uniform(-10, 440, (2, n, 2))
+    wh = rng.uniform(1, 300, (2, n, 2))
+    return torch.tensor(np.concatenate([xy, xy + wh], -1), dtype=torch.float32, device="cuda")
+
+
+def _hold_fwd(pyr, rois, s=7, sr=2, **kw):
+    """B1 against its plain version (bitwise-stable across launches, within
+    tolerance of the plain sums); returns the kernel's output."""
+    before = multilevel_roi_align_cuda.launches
+    got = multilevel_roi_align_cuda(pyr, rois, s, sr, **kw)
+    again = multilevel_roi_align_cuda(pyr, rois, s, sr, **kw)
+    torch.cuda.synchronize()
+    assert multilevel_roi_align_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    want = multilevel_roi_align_plain(pyr, rois, s, sr).float()
+    diff = (got.float() - want).abs()
+    if got.dtype == torch.float32:
+        assert diff.max().item() <= 1e-5
+    else:
+        assert bool((diff <= _ulp(want)).all())
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [35, 96, 256, 320])
+def test_roi_align_kernel_channels(cuda, c, dtype):
+    rng = np.random.RandomState(c)
+    _hold_fwd(_pyramid(rng, c, dtype), _random_rois(rng, 60))
+
+
+@pytest.mark.parametrize("s,sr", [(7, 1), (7, 3), (14, 4)])
+def test_roi_align_kernel_other_sampling_ratios(cuda, s, sr):
+    """sampling_ratio != 2 takes the kernel's form with run-time sample
+    loops; 14 x 4 fills the 56 of its 64 table entries an axis."""
+    rng = np.random.RandomState(s + sr)
+    _hold_fwd(_pyramid(rng, 64, torch.bfloat16), _random_rois(rng, 40), s, sr)
+
+
+def _edge_rois(kind, rng, n=96):
+    """Rois on a 320x448 canvas: wholly or partly outside it; degenerate
+    (zero, inverted, under one cell); sized at the FPN level thresholds and
+    the 38-cell extent bound, so that they straddle level borders; or all
+    small, so that every roi pools from P2."""
+    xy = rng.uniform(0, [448, 320], (2, n, 2))
+    if kind == "outside":
+        rois = np.concatenate([xy, xy + rng.uniform(5, 200, (2, n, 2))], -1)
+        rois[:, ::2] += rng.choice([-800.0, 800.0], (2, n // 2, 1))
+        rois[:, 1::4, :2] = -40.0
+        rois[:, 3::4, 2:] = [470.0, 350.0]
+    elif kind == "degenerate":
+        rois = np.concatenate([xy, xy + rng.uniform(0, 0.9, (2, n, 2))], -1)
+        rois[:, ::3, 2:] = rois[:, ::3, :2]
+        rois[:, 1::3, 2:] = rois[:, 1::3, :2] - rng.uniform(1, 30, (2, len(range(1, n, 3)), 2))
+    elif kind == "straddle":
+        side = rng.choice([112.0, 224.0, 448.0, 38.0 * 4, 38.0 * 8], (2, n, 1))
+        side = side * rng.uniform(0.98, 1.02, (2, n, 2))
+        rois = np.concatenate([xy - side / 2, xy + side / 2], -1)
+    else:
+        rois = np.concatenate([xy, xy + rng.uniform(2, 100, (2, n, 2))], -1)
+    return torch.tensor(rois, dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["outside", "degenerate", "straddle", "one_level"])
+def test_roi_align_kernel_edge_rois(cuda, kind, dtype):
+    rng = np.random.RandomState(len(kind))
+    rois = _edge_rois(kind, rng)
+    levels = roi_level_index(rois, (2, 3, 4, 5))
+    if kind == "one_level":
+        assert not levels.any()
+    if kind == "straddle":
+        assert len(torch.unique(levels)) == 4
+    got = _hold_fwd(_pyramid(rng, 64, dtype), rois)
+    if kind == "outside":
+        assert not got[:, ::2].any()  # wholly outside: every sample counts zero
