@@ -47,9 +47,20 @@ when every phase passed):
    timed on them and on crowded rois (every roi of an image inside one
    8x8-cell tile of P2), as in phase 3; B1 likewise on that step's rois
    (the train shape) and on edge rois (outside, degenerate, at the level
-   borders, on the last cells).  B1's launches count ``full`` and
-   ``train`` both.
-6. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
+   borders, on the last cells).  B1's launches count ``full``,
+   ``train`` and ``eval``.
+6. Save the trained state with ``train/checkpoint.py``, verify its
+   manifest, restore it into a fresh state (tree CRC equal), and evaluate
+   ``r50_fpn_coco`` at full width on the synthetic set (64 images, batch
+   8) through ``cli/eval_cli.py::run_eval`` with ``test.nms_mode=fused``
+   and with ``per_class``, launch counts set to 0 before each run and read
+   after (B1 must launch).  Metrics finite; each run's dump, loaded and
+   rescored, gives its dict; the first batch in float32 through the
+   kernels and through the plain path gives identical detections.  Eval
+   img/s (end to end, and over the batches after the first), the metrics,
+   a traced batch and each postprocess's time a call at three candidate
+   densities are printed.
+7. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
    the kernels (B1 forward, B2 backward) and through the plain path
@@ -57,20 +68,21 @@ when every phase passed):
    relative (B1 is bitwise in f32) and gradients within the CPU parity
    tests' tolerances (backbone 5e-3 by norm, the rest 1e-5 of the largest
    value): B2 and autograd's scatter sum in different orders.
-7. With ``--parent DIR``: import DIR's kernel wrappers (``ops/cuda``, its
+8. With ``--parent DIR``: import DIR's kernel wrappers (``ops/cuda``, its
    own package beside this one) and build its four kernel sources, then
    require this tree's kernels to give the same bits as DIR's wrappers on
    phase 3's and phase 5's inputs (B1 bf16 and f32 on serving, train-step and
    edge rois; B3 at the serving shape and k = 2000; B2 on its four cases;
    B4 on its three shapes), and time each in turns (parent, this, this,
    parent).
-8. Print the card's line, the ``kernels`` line and, last,
+9. Print the card's line, the ``kernels`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -665,7 +677,7 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
                 "roi_align_bwd": multilevel_roi_align_bwd_cuda}
     # r50_fpn_coco freezes the stem and stage 1; the tiny rehearsal is
     # given the same freeze so that it has frozen parameters to check.
-    overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}"]
+    overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic"]
     if rehearsal:
         overrides.append("model.backbone.freeze_stages=2")
     cfg = apply_overrides(get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco"),
@@ -744,7 +756,226 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
         f"trainable moved; launches {launches}")
     if not step_args:
         raise AssertionError("train: the ROIAlign backward was never called")
-    return {"launches": launches, "step_args": step_args[0]}
+    return {"launches": launches, "step_args": step_args[0], "state": state, "cfg": cfg}
+
+
+@contextlib.contextmanager
+def captured_postprocess(seen: list):
+    """Append to ``seen`` the arguments of every call of either
+    postprocess of ``detection/graph.py`` (``forward_inference`` looks
+    them up at each call)."""
+    from mx_rcnn_tpu_torch.detection import graph
+
+    names = ("_postprocess_one_fused", "_postprocess_one")
+    saved = {name: getattr(graph, name) for name in names}
+
+    def wrap(name):
+        def call(*args):
+            seen.append(args)
+            return saved[name](*args)
+        return call
+
+    for name in names:
+        setattr(graph, name, wrap(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(graph, name, fn)
+
+
+def postprocess_times(dev, rehearsal: bool, args: tuple, label: str) -> dict:
+    """Both postprocesses on the same captured inputs ``args``: CUDA
+    events around back-to-back calls (``ms``, the NMS fixed point's host
+    syncs included) and, from a ``torch.profiler`` trace, the device time
+    and kernel launches a call."""
+    from mx_rcnn_tpu_torch.detection import graph
+    from mx_rcnn_tpu_torch.utils.profiling import traced_breakdown
+
+    clock = Clock(dev)
+    cfg, _, roi_valid, probs = args[:4]
+    candidates = int((roi_valid[..., None] & (probs[..., 1:] >= cfg.test.score_threshold)).sum())
+    out = {"candidates": candidates}
+    for mode, fn in (("fused", graph._postprocess_one_fused), ("per_class", graph._postprocess_one)):
+        ms = clock.ms(lambda: fn(*args), 2 if rehearsal else 20)
+        device_ms = launches = float("nan")
+        if dev.type == "cuda":
+            trace = traced_breakdown(lambda: (fn(*args), torch.cuda.synchronize()))
+            device_ms, launches = trace["device_ms_per_call"], trace["kernel_launches_per_call"]
+        out[mode] = {"ms": ms, "device_ms": device_ms, "launches": launches}
+        log(f"[eval:postprocess:{mode}] {label}: batch {probs.shape[0]}, {probs.shape[1]} rois, "
+            f"{candidates} (roi, class) candidates above the threshold: {ms:.4f} ms a call "
+            f"(events), device {device_ms:.4f} ms, {launches} launches a call")
+    return out
+
+
+def eval_breakdown(dev, rehearsal: bool, cfg, model, first) -> dict:
+    """Where an eval batch's time goes: ``first`` through the eval step
+    with ``model`` (fused postprocess), CUDA events around back-to-back
+    calls (the forward alone, the batch already on the card) and a
+    ``torch.profiler`` trace of two calls (device time by stage, busy
+    share, launches)."""
+    from mx_rcnn_tpu_torch.parallel.step import make_eval_step
+    from mx_rcnn_tpu_torch.utils.profiling import traced_breakdown
+
+    step = make_eval_step((cfg.data.pixel_mean, cfg.data.pixel_std))
+    ms = Clock(dev).ms(lambda: step(model, first), 2 if rehearsal else 10)
+    if dev.type != "cuda":
+        return {"ms": ms}
+    trace = traced_breakdown(lambda: (step(model, first), torch.cuda.synchronize()))
+    stages = {k: round(v, 3) for k, v in list(trace["device_ms_by_stage"].items())[:8]}
+    log(f"[eval:trace] a batch of {first.images.shape[0]}, fused: {ms:.2f} ms (events, the "
+        f"forward alone), device {trace['device_ms_per_call']:.2f} ms, busy "
+        f"{trace['device_busy_share_of_traced_window']:.2f}, "
+        f"{trace['kernel_launches_per_call']:.0f} launches; device ms by stage {stages}")
+    return {"ms": ms, **trace}
+
+
+def eval_phase(dev, rehearsal: bool, trained: dict) -> dict:
+    """Phase 6: the trained r50_fpn_coco state saved with
+    ``train/checkpoint.py``, its manifest verified, restored into a fresh
+    state (the tree CRC and every tensor equal), then evaluated at full
+    width on the synthetic set through ``cli/eval_cli.py::run_eval`` in
+    both ``test.nms_mode``s, the launch counts set to 0 just before each
+    run and read just after.  Each run's dump, loaded and scored again,
+    gives its metrics dict; the metrics are finite.  Img/s is read end to
+    end and over the batches after the first.  Then, once: the first
+    eval batch through the kernels and through the plain versions
+    (float32 policy, ``roi_align_impl=xla``) gives identical detections
+    (B1 is the one kernel of this path, whatever the mode); the forward
+    is traced (:func:`eval_breakdown`); both postprocesses are timed on
+    the first batch's captured inputs at three candidate densities
+    (:func:`postprocess_times`).  Five train steps leave every
+    foreground score under ``test.score_threshold``, so the restored head
+    favours classes 1-4 (+4 on their bias: about 2,500 candidates an
+    image) to give the evaluator detections; the densities set that
+    favour to 0, 2 and 4.  The candidate mix is synthetic: no trained
+    detector's eval traffic is on the card's machine."""
+    import shutil
+
+    from mx_rcnn_tpu_torch.cli.eval_cli import run_eval
+    from mx_rcnn_tpu_torch.config import apply_overrides
+    from mx_rcnn_tpu_torch.data.datasets import build_dataset
+    from mx_rcnn_tpu_torch.data.loader import eval_batches
+    from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
+    from mx_rcnn_tpu_torch.evalutil.detections import load_detections
+    from mx_rcnn_tpu_torch.evalutil.pred_eval import evaluate_detections
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_cuda
+    from mx_rcnn_tpu_torch.parallel.step import make_eval_step
+    from mx_rcnn_tpu_torch.train import checkpoint as ckpt
+    from mx_rcnn_tpu_torch.train.loop import build_all
+
+    counters = {"roi_align": multilevel_roi_align_cuda, "fused_middle": fused_middle_levels,
+                "nms": nms_mask_cuda}
+    cfg, state = trained["cfg"], trained["state"]
+    n = 4 if rehearsal else 64
+    batch = max(cfg.model.test.per_device_batch, 1)
+    work = os.path.join(ROOT, "runs", f"chip_smoke_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        ckpt_dir = os.path.join(work, "ckpt")
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(ckpt_dir, state)
+        t_save = time.perf_counter() - t0
+        verified = ckpt.verify_manifest(ckpt_dir, state.step)
+        _, _, fresh, _, _ = build_all(cfg, dev)
+        t0 = time.perf_counter()
+        restored = ckpt.restore_checkpoint(ckpt_dir, fresh)
+        t_restore = time.perf_counter() - t0
+        saved_crc = ckpt.read_manifest(ckpt_dir, state.step)["tree_crc"]
+        crcs = (ckpt.tree_crc(ckpt.state_payload(state)), saved_crc,
+                ckpt.tree_crc(ckpt.state_payload(restored)))
+        size = os.path.getsize(os.path.join(ckpt.step_dir(ckpt_dir, state.step), ckpt.STATE_FILE))
+        log(f"[eval:checkpoint] step {state.step}: {size / 2**20:.1f} MiB saved in {t_save:.2f} s, "
+            f"manifest {verified}, restored in {t_restore:.2f} s; tree CRC trained/manifest/"
+            f"restored {crcs}")
+        if verified != (True, "ok") or len(set(crcs)) != 1 or restored.step != state.step:
+            raise AssertionError("eval: the checkpoint does not verify or restore")
+
+        bias = restored.model.box_head.cls_score.bias
+        base = bias[1:5].detach().clone()
+
+        def favour(extra: float) -> None:
+            with torch.no_grad():
+                bias[1:5] = base + extra
+
+        favour(4.0)
+        roidb = build_dataset(cfg.data, train=False).roidb()[:n]
+        out, launches = {}, {k: 0 for k in counters}
+        for mode in ("fused", "per_class"):
+            ecfg = apply_overrides(cfg, [f"model.test.nms_mode={mode}"])
+            ticks = []
+            dump = os.path.join(work, f"dets_{mode}.json")
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            metrics = run_eval(ecfg, state=restored, dump_path=dump, limit=n, device=dev,
+                               progress=lambda k: ticks.append((time.perf_counter(), k)))
+            wall = time.perf_counter() - t0
+            run = {k: fn.launches for k, fn in counters.items()}
+            for k in counters:
+                launches[k] += run[k]
+            # The batches after the first: one tick at each batch's end.
+            ends = ticks[batch - 1::batch]
+            gaps = np.diff([t for t, _ in ends])
+            steady = (ends[-1][1] - ends[0][1]) / (ends[-1][0] - ends[0][0]) if gaps.size else \
+                float("nan")
+            per_batch = [batch / g for g in gaps]
+            dumped = load_detections(dump)
+            n_dets = sum(len(d["scores"]) for d in dumped.values())
+            rescored = evaluate_detections(dumped, roidb, ecfg.model.num_classes)
+            log(f"[eval:{mode}] r50_fpn_coco{' (rehearsal: tiny)' if rehearsal else ''} "
+                f"{n} images, batch {batch}: {n / wall:.2f} img/s end to end ({wall:.2f} s, "
+                f"model build and the synthetic set's rendering included), {steady:.2f} img/s "
+                f"over the {gaps.size} batches after the first (per batch: min "
+                f"{min(per_batch, default=float('nan')):.2f}, median "
+                f"{float(np.median(per_batch)) if per_batch else float('nan'):.2f}, max "
+                f"{max(per_batch, default=float('nan')):.2f}); {n_dets} detections; launches "
+                f"{run}; dump rescored equal={rescored == metrics}")
+            log(f"[eval:{mode}] metrics {json.dumps(metrics, sort_keys=True)}")
+            if (rescored != metrics or not n_dets
+                    or not all(np.isfinite(v) for v in metrics.values())):
+                raise AssertionError(f"eval {mode}: no detections, non-finite metrics or the "
+                                     "dump rescores apart")
+            if not rehearsal and run["roi_align"] < 1:
+                raise AssertionError(f"eval {mode}: B1 never launched")
+            out[mode] = {"img_s": n / wall, "img_s_steady": steady, "img_s_per_batch": per_batch,
+                         "metrics": metrics}
+
+        # The first batch through the kernels and through the plain
+        # versions, float32: the detections are identical.
+        first, _ = next(eval_batches(roidb, cfg.data, batch, dev))
+        dets = {}
+        for name, over in (("kernels", []), ("plain", ["model.rcnn.roi_align_impl=xla"])):
+            fcfg = apply_overrides(cfg, ["model.precision.policy=float32", *over])
+            model = TwoStageDetector(fcfg.model, device=dev)
+            model.load_state_dict(restored.model.state_dict())
+            step = make_eval_step((fcfg.data.pixel_mean, fcfg.data.pixel_std))
+            dets[name] = [x.cpu() for x in step(model, first)]
+        same = all(torch.equal(a, b) for a, b in zip(dets["kernels"], dets["plain"]))
+        log(f"[eval:reference] first batch, float32: {int(dets['kernels'][3].sum())} detections "
+            f"through the kernels, {int(dets['plain'][3].sum())} through the plain path, "
+            f"identical={same}")
+        if not same or not dets["kernels"][3].any():
+            raise AssertionError("eval: the kernel path and the plain path disagree, or return "
+                                 "no detections")
+
+        restored.model.eval()
+        out["trace"] = eval_breakdown(dev, rehearsal, cfg, restored.model, first)
+        step = make_eval_step((cfg.data.pixel_mean, cfg.data.pixel_std))
+        out["postprocess"] = {}
+        for extra in (0.0, 2.0, 4.0):
+            favour(extra)
+            seen = []
+            with captured_postprocess(seen):
+                step(restored.model, first)
+            out["postprocess"][extra] = postprocess_times(dev, rehearsal, seen[0],
+                                                          f"classes 1-4 favoured +{extra:g}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, **out}
 
 
 def train_reference_phase(dev, seed: int) -> None:
@@ -802,7 +1033,7 @@ def train_reference_phase(dev, seed: int) -> None:
 # their own.)
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu",
-                  "mx_rcnn_tpu/ops/pallas/roi_align.py:393", ("full", "train")),
+                  "mx_rcnn_tpu/ops/pallas/roi_align.py:393", ("full", "train", "eval")),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                       "mx_rcnn_tpu/ops/pallas/roi_align.py:623", ("train",)),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
@@ -964,6 +1195,7 @@ def main() -> int:
                          kernels)
     forward_cases_phase(dev, args.cpu_rehearsal, args.seed, paths["train"]["step_args"],
                         kernels)
+    paths["eval"] = eval_phase(dev, args.cpu_rehearsal, paths["train"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)

@@ -1,9 +1,13 @@
 """Train the port on the card (counterpart of ``mx_rcnn_tpu/cli/train_cli.py``).
 
-    python -m mx_rcnn_tpu_torch.cli.train_cli --config r50_fpn_coco --steps 5
+    python -m mx_rcnn_tpu_torch.cli.train_cli --config r50_fpn_coco \
+        --set data.dataset=synthetic --steps 5 --workdir runs
 
 Runs ``--steps`` single-device train steps on the synthetic dataset with
-random weights from the seed and prints one JSON metrics line per step.
+random weights from the seed, prints one JSON metrics line per step, and
+saves checkpoints under ``<workdir>/<config name>/ckpt`` every
+``train.checkpoint_every`` steps and after the last (``--workdir``
+defaults to the config's ``workdir``).
 ``--device`` defaults to the card; without one it raises rather than fall
 back to the CPU (``--device cpu`` asks for the CPU).
 """
@@ -25,6 +29,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="train steps (default: the schedule's total_steps)")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     p.add_argument("--seed", type=int, default=None, help="override train.seed")
+    p.add_argument("--workdir", default=None, help="run directory (checkpoints)")
     return p.parse_args(argv)
 
 
@@ -33,9 +38,11 @@ def main(argv=None):
     cfg = apply_overrides(get_config(args.config), args.set)
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=args.seed))
+    if args.workdir:
+        cfg = dataclasses.replace(cfg, workdir=args.workdir)
     from mx_rcnn_tpu_torch.train.loop import train
 
-    return train(cfg, steps=args.steps, device=args.device)
+    return train(cfg, steps=args.steps, device=args.device, workdir=cfg.workdir)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,15 @@
 """Immutable configuration for the PyTorch port.
 
-A copy of the subset of ``mx_rcnn_tpu/config.py`` that the serving path
-and the single-device train step read, with the same field names and
-defaults, so a ``--set``-style override string means the same thing to
-both packages.  Fields the port does not read (data sources, checkpoints,
-multi-chip layout, TPU layout rewrites such as ``stem_s2d``/``c2_pad``/
+A copy of the subset of ``mx_rcnn_tpu/config.py`` that the serving path,
+the single-device train step and evaluation read, with the same field
+names and defaults, so a ``--set``-style override string means the same
+thing to both packages.  Fields the port does not read (multi-chip
+layout, TPU layout rewrites such as ``stem_s2d``/``c2_pad``/
 ``packed_head``/``fold_frozen_bn``, speed-only knobs such as
 ``assign_block``/``topk_block``/``roi_block``/``topk_impl`` whose forms
 are bit-identical to the dense or stable ones the port computes, the
-observability and fleet planes) are left out; the port always executes
+observability and fleet planes) are left out, apart from
+``data.aspect_grouping`` (see its comment); the port always executes
 the canonical forms.
 
 Two backend knobs keep their JAX-side values so a config reads the same in
@@ -104,11 +105,14 @@ class RCNNConfig:
 
 @dataclass(frozen=True)
 class TestConfig:
+    # Eval images per call (cli/eval_cli.py's batch).
+    per_device_batch: int = 8
     score_threshold: float = 0.05
     nms_threshold: float = 0.5
     max_detections: int = 100
-    # Only "fused" (global top-K + one class-offset NMS) is ported;
-    # "per_class" raises NotImplementedError.
+    # "fused": global top-``fused_top_k`` (roi, class) candidates and one
+    # class-offset NMS; "per_class": one NMS per foreground class
+    # (detection/graph.py::_postprocess_one).
     nms_mode: str = "fused"
     fused_top_k: int = 1000
     nms_sweep_cap: int = 0
@@ -134,14 +138,26 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    # Static landscape canvas (H, W); 800x1344 holds every 800-short /
-    # 1333-max resize with FPN stride-32 divisibility.
+    dataset: str = "coco"  # coco | voc | synthetic
+    root: str = "data"
+    train_split: str = "train2017"
+    val_split: str = "val2017"
+    # Static LANDSCAPE canvas (H, W); portrait images letterbox into its
+    # transpose (data/transforms.py::oriented_canvas).  800x1344 holds
+    # every 800-short / 1333-max resize with FPN stride-32 divisibility.
     image_size: tuple[int, int] = (800, 1344)
     short_side: int = 800
     max_side: int = 1333
     max_gt_boxes: int = 100
     pixel_mean: tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: tuple[float, float, float] = (58.395, 57.12, 57.375)
+    # Not ported: nothing reads it (aspect grouping comes with real-data
+    # training).  Kept so that the JAX package's --set lines parse.
+    aspect_grouping: bool = True
+    # VOC: promote "difficult" objects to real gt instead of ignore regions.
+    use_diff: bool = False
+    # The parsed-roidb cache is not ported: "" only.
+    cache_dir: str = ""
 
 
 @dataclass(frozen=True)
@@ -177,6 +193,8 @@ class TrainConfig:
     grad_clip: float = 35.0
     schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
     seed: int = 0
+    # Save <workdir>/<name>/ckpt every this many steps, and after the last.
+    checkpoint_every: int = 5000
 
 
 @dataclass(frozen=True)
@@ -186,6 +204,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    workdir: str = "runs"
 
 
 def _fpn_model(num_classes: int, backbone: str) -> ModelConfig:
@@ -212,13 +231,16 @@ def _tiny_synthetic() -> Config:
             rpn=RPNConfig(batch_size=64, train_pre_nms_top_n=200, train_post_nms_top_n=64,
                           test_pre_nms_top_n=200, test_post_nms_top_n=64),
             rcnn=RCNNConfig(roi_batch_size=32, hidden_dim=128),
+            test=TestConfig(per_device_batch=1),
         ),
         data=DataConfig(
-            image_size=(128, 128), short_side=128, max_side=128, max_gt_boxes=8
+            dataset="synthetic", image_size=(128, 128), short_side=128, max_side=128,
+            max_gt_boxes=8,
         ),
         train=TrainConfig(
             schedule=ScheduleConfig(base_lr=0.01, warmup_steps=10, decay_steps=(400,),
                                     total_steps=500, reference_batch=0),
+            checkpoint_every=250,
         ),
     )
 

@@ -16,6 +16,16 @@ import torch
 import torch.nn.functional as F
 
 
+def oriented_canvas(canvas_hw: tuple[int, int], h: int, w: int) -> tuple[int, int]:
+    """The static canvas for an image of true size (h, w): ``canvas_hw``
+    is the landscape canvas (h <= w), and portrait images use its
+    transpose.  Square canvases are orientation-free."""
+    ch, cw = canvas_hw
+    if h > w and ch != cw:
+        return cw, ch
+    return ch, cw
+
+
 def resize_scale(h: int, w: int, short_side: int, max_side: int) -> float:
     """Short side -> ``short_side`` unless the long side passes ``max_side``."""
     scale = short_side / min(h, w)

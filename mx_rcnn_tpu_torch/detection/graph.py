@@ -33,7 +33,7 @@ from mx_rcnn_tpu_torch.geometry import (
 )
 from mx_rcnn_tpu_torch.geometry.losses import masked_softmax_cross_entropy, weighted_smooth_l1
 from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_fast
-from mx_rcnn_tpu_torch.ops.nms import batched_nms
+from mx_rcnn_tpu_torch.ops.nms import batched_nms, nms_indices
 from mx_rcnn_tpu_torch.ops.proposals import Proposals, generate_fpn_proposals
 from mx_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align
 from mx_rcnn_tpu_torch.ops.sampling import AnchorTargets, RoiSamples, assign_anchors, sample_rois
@@ -162,11 +162,11 @@ def _propose_on_features(model, feats, batch: Batch) -> Proposals:
 
 def forward_inference(model, batch: Batch, pixel_stats=None) -> Detections:
     """Full inference: backbone -> RPN -> proposals -> ROIAlign -> box
-    head -> fused class-offset NMS -> top-D, padded with a valid mask."""
+    head -> NMS (``test.nms_mode``: fused class-offset or per class) ->
+    top-D, padded with a valid mask."""
     cfg = model.cfg
-    if cfg.test.nms_mode == "per_class":
-        raise NotImplementedError("test.nms_mode='per_class' is not ported")
-    if cfg.test.nms_mode != "fused":
+    post = {"fused": _postprocess_one_fused, "per_class": _postprocess_one}.get(cfg.test.nms_mode)
+    if post is None:
         raise ValueError(f"test.nms_mode must be 'per_class' or 'fused', got {cfg.test.nms_mode!r}")
     feats = model.features(prep_images(batch.images, pixel_stats))
     props = _propose_on_features(model, feats, batch)
@@ -179,9 +179,7 @@ def forward_inference(model, batch: Batch, pixel_stats=None) -> Detections:
     # the heads emit.
     cls_prob = torch.softmax(cls_logits.float(), dim=-1).reshape(b, r, cfg.num_classes)
     box_deltas = box_deltas.float().reshape(b, r, -1, 4)
-    return Detections(*_postprocess_one_fused(
-        cfg, props.rois, props.valid, cls_prob, box_deltas, batch.image_hw
-    ))
+    return Detections(*post(cfg, props.rois, props.valid, cls_prob, box_deltas, batch.image_hw))
 
 
 def forward_proposals(model, batch: Batch, pixel_stats=None) -> Proposals:
@@ -189,6 +187,47 @@ def forward_proposals(model, batch: Batch, pixel_stats=None) -> Proposals:
     feats = model.features(prep_images(batch.images, pixel_stats))
     props = _propose_on_features(model, feats, batch)
     return props._replace(scores=props.scores.float())
+
+
+def _postprocess_one(cfg: ModelConfig, rois, roi_valid, probs, deltas, image_hw):
+    """Per-class postprocess over the batch: decode every roi per
+    foreground class, threshold, top ``per_class_k`` per class, one NMS
+    per class, global top-D.  The C-1 classes are one batched problem
+    (the JAX graph's vmap over classes), never a loop.
+
+    rois (B, R, 4), roi_valid (B, R), probs (B, R, C), deltas
+    (B, R, C or 1, 4), image_hw (B, 2) -> boxes (B, D, 4), scores (B, D),
+    classes (B, D) int32, valid (B, D)."""
+    b, r = rois.shape[:2]
+    d_out = cfg.test.max_detections
+    fg = cfg.num_classes - 1
+    per_class_k = min(r, max(2 * d_out, 100))
+
+    # (B, C-1, R, ...): class c-1 on axis 1.
+    delta_c = deltas[:, :, :1] if cfg.rcnn.class_agnostic else deltas[:, :, 1:]
+    delta_c = delta_c.expand(b, r, fg, 4).permute(0, 2, 1, 3)
+    boxes = decode_boxes(delta_c, rois[:, None], weights=cfg.rcnn.bbox_weights)
+    boxes = clip_boxes(boxes, image_hw[:, 0, None, None], image_hw[:, 1, None, None])
+    p = probs[..., 1:].permute(0, 2, 1)
+    sc = torch.where(roi_valid[:, None] & (p >= cfg.test.score_threshold), p, -torch.inf)
+    top_s, top_i = top_k(sc, per_class_k)                       # (B, C-1, K)
+    top_b = torch.gather(boxes, 2, top_i[..., None].expand(*top_i.shape, 4))
+    keep_i, keep_v = nms_indices(top_b, top_s, cfg.test.nms_threshold, per_class_k,
+                                 sweep_cap=cfg.test.nms_sweep_cap)
+    out_b = torch.gather(top_b, 2, keep_i[..., None].expand(*keep_i.shape, 4))
+    out_s = torch.where(keep_v, torch.gather(top_s, 2, keep_i), -torch.inf)
+
+    flat_b = out_b.reshape(b, fg * per_class_k, 4)
+    flat_s = out_s.reshape(b, fg * per_class_k)
+    flat_c = torch.arange(1, fg + 1, device=rois.device).repeat_interleave(per_class_k)
+    sel_s, sel_i = top_k(flat_s, d_out)
+    valid = torch.isfinite(sel_s)
+    return (
+        torch.gather(flat_b, 1, sel_i[..., None].expand(b, d_out, 4)) * valid[..., None],
+        torch.where(valid, sel_s, 0.0),
+        torch.where(valid, flat_c[sel_i], 0).to(torch.int32),
+        valid,
+    )
 
 
 def _postprocess_one_fused(cfg: ModelConfig, rois, roi_valid, probs, deltas, image_hw):

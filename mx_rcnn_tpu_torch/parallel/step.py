@@ -1,5 +1,6 @@
-"""The single-device train step (port of the single-device form of
-``mx_rcnn_tpu/parallel/step.py::make_train_step``).
+"""The single-device train and eval steps (port of the single-device
+forms of ``mx_rcnn_tpu/parallel/step.py::make_train_step`` and
+``make_eval_step``).
 
 One call runs forward, backward and the optimizer update on the model's
 device.  The step's four random draws come from the state's generator,
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from mx_rcnn_tpu_torch.data.batch import Batch
-from mx_rcnn_tpu_torch.detection.graph import forward_train
+from mx_rcnn_tpu_torch.detection.graph import Detections, forward_inference, forward_train
 from mx_rcnn_tpu_torch.train.optim import global_norm
 from mx_rcnn_tpu_torch.train.state import TrainState, step_seed
 
@@ -44,3 +45,21 @@ def make_train_step(pixel_stats=None, seed: int = 0):
         return state, metrics
 
     return step
+
+
+def make_eval_step(pixel_stats=None):
+    """``eval_step(model, batch) -> Detections``: ``forward_inference``
+    under ``torch.inference_mode()``; ``pixel_stats`` is (mean, std) for
+    uint8 batches."""
+
+    def step(model, batch: Batch) -> Detections:
+        with torch.inference_mode():
+            return forward_inference(model, batch, pixel_stats)
+
+    return step
+
+
+def eval_variables(state: TrainState) -> dict[str, torch.Tensor]:
+    """Inference weights of a train state: the model's ``state_dict`` (no
+    weight folding: the decode applies ``rcnn.bbox_weights`` in-graph)."""
+    return state.model.state_dict()

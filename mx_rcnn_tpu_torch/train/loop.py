@@ -4,9 +4,12 @@
 :func:`build_all` makes the model (random weights from ``train.seed``,
 or the given ``state_dict``), freezes the reference's backbone prefixes,
 and builds the schedule, the optimizer, the state and the step.
-:func:`train` runs N steps over the synthetic dataset (the one reader the
-port has) and logs one metrics line per step.  No mesh, checkpoints,
-resume, guardian or evaluation yet.
+:func:`train` runs N steps over the synthetic dataset and logs one
+metrics line per step; given a ``workdir`` it saves a checkpoint every
+``train.checkpoint_every`` steps and after the last
+(``<workdir>/<name>/ckpt``, ``train/checkpoint.py``).  Training on COCO or
+VOC (which needs aspect grouping, flips and shuffling), resume, the mesh,
+the guardian and evaluation in the loop are not ported.
 
 Runs on the card: ``device=None`` means ``"cuda"``, and with no card it
 raises rather than fall back to the CPU.
@@ -26,6 +29,7 @@ from mx_rcnn_tpu_torch.data.datasets import SyntheticDataset
 from mx_rcnn_tpu_torch.data.loader import batches
 from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
 from mx_rcnn_tpu_torch.parallel.step import make_train_step
+from mx_rcnn_tpu_torch.train.checkpoint import save_checkpoint
 from mx_rcnn_tpu_torch.train.optim import SGDMomentum, frozen_mask, make_schedule
 from mx_rcnn_tpu_torch.train.state import TrainState
 from mx_rcnn_tpu_torch.utils.device import resolve_device
@@ -81,12 +85,22 @@ def build_all(cfg: Config, device=None, variables: Optional[dict] = None):
     return model, optimizer, state, step_fn, global_batch
 
 
+def checkpoint_dir(cfg: Config, workdir: Optional[str] = None) -> str:
+    return f"{workdir or cfg.workdir}/{cfg.name}/ckpt"
+
+
 def train(cfg: Config, steps: Optional[int] = None, device=None,
-          variables: Optional[dict] = None, log: Callable[[str], None] = print) -> TrainState:
+          variables: Optional[dict] = None, log: Callable[[str], None] = print,
+          workdir: Optional[str] = None) -> TrainState:
     """Run ``steps`` train steps (default: the schedule's total) on the
     synthetic dataset, uint8 images on the config's canvas; ``log`` gets
-    one JSON line per step: its metrics and ``seconds``.  Returns the
+    one JSON line per step: its metrics and ``seconds``.  With a
+    ``workdir``, checkpoints go to ``<workdir>/<name>/ckpt``.  Returns the
     final state."""
+    if cfg.data.dataset != "synthetic":
+        raise NotImplementedError(
+            f"training on data.dataset={cfg.data.dataset!r} is not ported (it needs aspect "
+            "grouping, flips and shuffling); set data.dataset=synthetic")
     model, _, state, step_fn, global_batch = build_all(cfg, device, variables)
     if steps is None:
         steps = scale_schedule_steps(cfg.train.schedule, global_batch).total_steps
@@ -103,4 +117,8 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
         values = {k: float(v) for k, v in metrics.items()}
         log(json.dumps({"step": state.step, **values,
                         "seconds": time.perf_counter() - t0}))
+        if workdir and state.step % cfg.train.checkpoint_every == 0:
+            save_checkpoint(checkpoint_dir(cfg, workdir), state)
+    if workdir:
+        save_checkpoint(checkpoint_dir(cfg, workdir), state)
     return state

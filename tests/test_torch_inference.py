@@ -150,10 +150,24 @@ def test_forward_proposals_scores_are_float32(setup):
 
 
 def test_per_class_postprocess_is_not_ported(setup):
+    """Once a refusal, now ported: ``test.nms_mode="per_class"`` end to end
+    reproduces JAX's per-class detections as the fused mode does above; an
+    unknown mode still raises."""
     cfg = apply_overrides(setup["cfg"], ["model.test.nms_mode=per_class"])
     model = TwoStageDetector(cfg.model, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TG.forward_inference(model, Batch(images=_t(setup["images"]), image_hw=_t(HW)))
+    model.load_state_dict(setup["sd"])
+    jmodel = JaxDetector(cfg=apply_overrides(setup["jmodel"].cfg, ["test.nms_mode=per_class"]))
+    want = JG.forward_inference(jmodel, setup["variables"], setup["jbatch"])
+    with torch.inference_mode():
+        got = TG.forward_inference(model, Batch(images=_t(setup["images"]), image_hw=_t(HW)))
+    for i in range(2):
+        ref, out = _dets(want, i), _dets(got, i)
+        assert len(ref["scores"]) > 10
+        assert match_fraction(ref, out, min_iou=0.9, score_tol=1e-3) >= 0.9
+    bad = TwoStageDetector(apply_overrides(setup["cfg"], ["model.test.nms_mode=nope"]).model,
+                           device="cpu")
+    with pytest.raises(ValueError, match="nms_mode"):
+        TG.forward_inference(bad, Batch(images=_t(setup["images"]), image_hw=_t(HW)))
 
 
 def test_engine_serves_requests_on_cpu(setup):

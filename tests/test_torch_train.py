@@ -21,6 +21,7 @@ Tolerances:
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -148,8 +149,8 @@ def test_synthetic_records_match_jax():
                           dtype="uint8").roidb()
     for i, rec in enumerate(theirs):
         got = ours.record(i)
-        assert got.image.dtype == np.uint8
-        np.testing.assert_array_equal(got.image, rec.image_array)
+        assert got.image_array.dtype == np.uint8
+        np.testing.assert_array_equal(got.image_array, rec.image_array)
         np.testing.assert_array_equal(got.boxes, rec.boxes)
         np.testing.assert_array_equal(got.gt_classes, rec.gt_classes)
 
@@ -170,7 +171,8 @@ def test_loader_letterboxes_uint8_and_pads_gt():
         np.testing.assert_array_equal(batch.gt_boxes[i, :n].numpy(), rec.boxes * np.float32(scale))
         np.testing.assert_array_equal(batch.gt_classes[i, :n].numpy(), rec.gt_classes)
     with pytest.raises(ValueError):
-        assemble([recs[0]._replace(image=recs[0].image.astype(np.float32))], cfg, "cpu")
+        assemble([dataclasses.replace(recs[0], image_array=recs[0].image_array.astype(np.float32))],
+                 cfg, "cpu")
 
 
 def test_frozen_mask_anchors_prefixes():
@@ -251,12 +253,14 @@ def test_train_on_cpu_two_steps(capsys):
     assert back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd)
 
 
-def test_train_cli_on_cpu(capsys):
+def test_train_cli_on_cpu(capsys, tmp_path):
     state = train_cli.main(["--config", "tiny_synthetic", "--steps", "2", "--device", "cpu",
-                            "--seed", "4", "--set", "model.rcnn.roi_align_bwd_impl=xla"])
+                            "--seed", "4", "--set", "model.rcnn.roi_align_bwd_impl=xla",
+                            "--workdir", str(tmp_path)])
     assert state.step == 2
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 2 and '"step": 2' in out[-1]
+    assert sorted(os.listdir(tmp_path / "tiny_synthetic" / "ckpt")) == ["2", "manifest-2.json"]
 
 
 def test_train_refuses_without_a_card(monkeypatch):
