@@ -37,18 +37,15 @@ when every phase passed):
    kernel of a path must have launched.  Every response must be finite
    with boxes inside its image, and the full path must return detections.
 5. Train ``r50_fpn_coco`` at full width (``model.rpn.loss_impl=compact``,
-   the mixed bf16 policy, batch 2, synthetic uint8 images on the 800x1344
-   canvas, random weights from the seed) for 5 steps through
-   ``train/loop.py::train``: every loss finite and ``nonfinite`` 0,
-   every trainable parameter moved, frozen parameters and FrozenBN buffers
-   bitwise unchanged, B1 and B2 launched in every step.  Seconds per step
-   after the first (without and with the batch assembly) and peak memory
-   are printed.  The last step's B2 inputs are kept; B2 is then held and
-   timed on them and on crowded rois (every roi of an image inside one
-   8x8-cell tile of P2), as in phase 3; B1 likewise on that step's rois
-   (the train shape) and on edge rois (outside, degenerate, at the level
-   borders, on the last cells).  B1's launches count ``full``,
-   ``train`` and ``eval``.
+   the mixed bf16 policy, batch 2, the synthetic set's uint8 images on
+   the 800x1344 canvas in the loader's schedule, random weights from the
+   seed) for 5 steps through ``train/loop.py::train`` with
+   ``train.log_every=1``: every loss finite and ``nonfinite`` 0, every
+   trainable parameter moved, frozen parameters and FrozenBN buffers
+   bitwise unchanged, B1 and B2 launched in every step.  Seconds a step
+   after the first (batch assembly included, and its ``data_stall_ms``)
+   and peak memory are printed.  The last step's B2 inputs are kept for
+   phase 7b.
 6. Save the trained state with ``train/checkpoint.py``, verify its
    manifest, restore it into a fresh state (tree CRC equal), and evaluate
    ``r50_fpn_coco`` at full width on the synthetic set (64 images, batch
@@ -60,7 +57,28 @@ when every phase passed):
    img/s (end to end, and over the batches after the first), the metrics,
    a traced batch and each postprocess's time a call at three candidate
    densities are printed.
-7. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
+7. Train on a roidb, preempt, resume, evaluate (:func:`roidb_phase`):
+   ``r50_fpn_coco`` at full width from a torchvision-layout ResNet-50
+   file written from the seed, on 16 landscape (480x640) and 8 portrait
+   (640x480) uint8 records, one with an inverted box and one whose file
+   does not exist, flips on.  Run A takes 8 steps; run B is preempted by
+   a real SIGTERM at its step-2 drain (emergency checkpoint at 2) and
+   resumed to 8; both under deterministic algorithms, B's final state
+   equal to A's.  The import, the schedule (indices, flips, both
+   orientations), the quarantine journal, B1 and B2 in every step,
+   ``metrics.jsonl``, checkpoint steps and tree CRC are checked; then
+   ``run_eval`` on 16 synthetic images.  Img/s, ``data_stall_ms``, the
+   emergency save's and the restore's seconds, eval img/s and peak memory
+   are printed.
+7b. B2 held against its plain version and timed on the inputs of phase
+   5's last step, of a portrait step of phase 7 and on crowded rois
+   (every roi of an image inside one 8x8-cell tile of P2), as in phase 3;
+   B1 likewise on those two steps' rois (the train shape; the portrait
+   one over a random pyramid of the portrait canvas) and on edge rois
+   (outside, degenerate, at the level borders, on the last cells).  B1's
+   launches count ``full``, ``train``, ``eval`` and ``roidb``, B2's
+   ``train`` and ``roidb``.
+8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
    the kernels (B1 forward, B2 backward) and through the plain path
@@ -68,14 +86,14 @@ when every phase passed):
    relative (B1 is bitwise in f32) and gradients within the CPU parity
    tests' tolerances (backbone 5e-3 by norm, the rest 1e-5 of the largest
    value): B2 and autograd's scatter sum in different orders.
-8. With ``--parent DIR``: import DIR's kernel wrappers (``ops/cuda``, its
+9. With ``--parent DIR``: import DIR's kernel wrappers (``ops/cuda``, its
    own package beside this one) and build its four kernel sources, then
    require this tree's kernels to give the same bits as DIR's wrappers on
-   phase 3's and phase 5's inputs (B1 bf16 and f32 on serving, train-step and
-   edge rois; B3 at the serving shape and k = 2000; B2 on its four cases;
-   B4 on its three shapes), and time each in turns (parent, this, this,
-   parent).
-9. Print the card's line, the ``kernels`` line and, last,
+   phase 3's and phase 7b's inputs (B1 bf16 and f32 on serving, train-step,
+   portrait-step and edge rois; B3 at the serving shape and k = 2000; B2
+   on its five cases; B4 on its three shapes), and time each in turns
+   (parent, this, this, parent).
+10. Print the card's line, the ``kernels`` line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -491,26 +509,29 @@ def crowded_rois(b: int, r: int, seed: int) -> torch.Tensor:
     return torch.tensor(np.concatenate([xy, xy + wh], -1), dtype=torch.float32)
 
 
-def backward_cases_phase(dev, rehearsal: bool, seed: int, step_args, kernels: dict) -> None:
-    """Phase 5b: B2 on the rois and cotangent of a real train step (its
-    backward's inputs, captured in the train phase) and on crowded rois,
-    each held against its plain version and timed."""
+def backward_cases_phase(dev, rehearsal: bool, seed: int, steps: dict, kernels: dict) -> None:
+    """Phase 7b: B2 on the rois and cotangent of real train steps (their
+    backward's inputs, captured in the train phases: ``steps`` maps a
+    case name to them, the landscape step of phase 5 and a portrait step
+    of phase 7) and on crowded rois, each held against its plain version
+    and timed."""
     from mx_rcnn_tpu_torch.ops.cuda.roi_align import roi_level_index
 
     clock = Clock(dev)
     iters, plain_iters = (2, 1) if rehearsal else (20, 3)
-    shapes, dt, rois, _, gd, sr = step_args
+    shapes, dt, rois, _, gd, sr = steps["step"]
     crowd = crowded_rois(rois.shape[0], rois.shape[1], seed).to(dev)
     g = torch.Generator().manual_seed(seed + 5)
     cases = {
-        "step": step_args,
+        **steps,
         "crowded": (shapes, dt, crowd, roi_level_index(crowd, sorted(shapes)),
                     torch.randn(gd.shape, generator=g).to(dt).to(dev), sr),
     }
     k = kernels["roi_align_bwd"]
     for name, args in cases.items():
         res = hold_bwd(args, clock, iters, plain_iters)
-        log(f"[kernel:roi_align_bwd:{name}] {res['shape']}: match={res['match']} "
+        h2, w2 = args[0][2]
+        log(f"[kernel:roi_align_bwd:{name}] {res['shape']} P2 {h2}x{w2}: match={res['match']} "
             f"max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
             f"kernel_ms={res['kernel_ms']:.4f} "
             f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound'][0]:.4f}")
@@ -523,24 +544,33 @@ def backward_cases_phase(dev, rehearsal: bool, seed: int, step_args, kernels: di
         k.setdefault("cases", {})[name] = args
 
 
-def forward_cases_phase(dev, rehearsal: bool, seed: int, step_args, kernels: dict) -> None:
-    """Phase 5b: B1 on the rois of a real train step (captured in the train
-    phase; the train shape, 512 rois an image) and on edge rois, in bf16
-    and f32 over phase 3's pyramids, each held against its plain version,
-    two launches bitwise equal, and timed."""
+def forward_cases_phase(dev, rehearsal: bool, seed: int, steps: dict, kernels: dict) -> None:
+    """Phase 7b: B1 on the rois of real train steps (captured in the train
+    phases, 512 rois an image: ``steps`` as in
+    :func:`backward_cases_phase`) and on edge rois, in bf16 and f32, each
+    held against its plain version, two launches bitwise equal, and
+    timed.  The landscape cases pool phase 3's pyramids; a portrait step
+    pools a random pyramid of its own (transposed) level shapes."""
     clock = Clock(dev)
     iters, plain_iters = (2, 1) if rehearsal else (20, 3)
-    rois = step_args[2]
-    b, r = rois.shape[:2]
+    g = torch.Generator().manual_seed(seed + 9)
     for name in ("roi_align", "roi_align_f32"):
         k = kernels[name]
         pyr, _, s, sr = k["inputs"]["serving"]
+        for case, args in steps.items():
+            shapes, rois = args[0], args[2]
+            case_pyr = pyr
+            if any(pyr[l].shape[1:3] != shapes[l] for l in pyr):
+                case_pyr = {l: torch.randn((rois.shape[0], *shapes[l], pyr[l].shape[-1]),
+                                           generator=g).to(pyr[l].dtype).to(dev) for l in pyr}
+            k["inputs"][case] = (case_pyr, rois, s, sr)
+        b, r = steps["step"][2].shape[:2]
         h, w = (x << 2 for x in pyr[2].shape[1:3])
-        k["inputs"]["step"] = (pyr, rois, s, sr)
         k["inputs"]["edge"] = (pyr, edge_rois(b, r, h, w, seed + 7).to(dev), s, sr)
-        for case in ("step", "edge"):
+        for case in (*steps, "edge"):
             res = hold_fwd(*k["inputs"][case], clock, iters, plain_iters)
-            log(f"[kernel:{name}:{case}] {res['shape']}: match={res['match']} "
+            h2, w2 = k["inputs"][case][0][2].shape[1:3]
+            log(f"[kernel:{name}:{case}] {res['shape']} P2 {h2}x{w2}: match={res['match']} "
                 f"max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
                 f"kernel_ms={res['kernel_ms']:.4f} plain_ms={res['plain_ms']:.4f} "
                 f"bound_ms={res['bound'][0]:.4f}")
@@ -660,12 +690,40 @@ def reference_phase(dev, seed: int) -> None:
             raise AssertionError("the kernel path and the plain path disagree")
 
 
+def finite_line(m: dict) -> bool:
+    """Every number of a train log line is finite (``img_s`` is null at
+    the first drain)."""
+    return all(np.isfinite(v) for k, v in m.items() if not (k == "img_s" and v is None))
+
+
+@contextlib.contextmanager
+def captured_backward(store: list, keep):
+    """Wrap B2's autograd Function: each backward call whose level shapes
+    ``keep`` accepts puts its inputs, as :func:`hold_bwd` takes them, in
+    ``store[0]`` (the last such call wins)."""
+    from mx_rcnn_tpu_torch.ops.cuda import roi_align as roi_align_mod
+
+    backward = roi_align_mod.MultilevelRoiAlign.backward
+
+    def capture(ctx, g):
+        if keep(ctx.shapes):
+            rois, level_idx = ctx.saved_tensors[:2]
+            store[:] = [(dict(ctx.shapes), ctx.dtype, rois.clone(), level_idx.clone(),
+                         g.to(ctx.dtype).contiguous().clone(), ctx.sampling_ratio)]
+        return backward(ctx, g)
+
+    roi_align_mod.MultilevelRoiAlign.backward = staticmethod(capture)
+    try:
+        yield store
+    finally:
+        roi_align_mod.MultilevelRoiAlign.backward = staticmethod(backward)
+
+
 def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
     """Phase 5: r50_fpn_coco trained at full width for ``steps`` steps
     through ``train/loop.py::train``; the launch counts are set to 0 just
     before and read after every step."""
     from mx_rcnn_tpu_torch.config import apply_overrides, get_config
-    from mx_rcnn_tpu_torch.ops.cuda import roi_align as roi_align_mod
     from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
         multilevel_roi_align_bwd_cuda,
         multilevel_roi_align_cuda,
@@ -677,7 +735,8 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
                 "roi_align_bwd": multilevel_roi_align_bwd_cuda}
     # r50_fpn_coco freezes the stem and stage 1; the tiny rehearsal is
     # given the same freeze so that it has frozen parameters to check.
-    overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic"]
+    overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic",
+                 "train.log_every=1"]
     if rehearsal:
         overrides.append("model.backbone.freeze_stages=2")
     cfg = apply_overrides(get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco"),
@@ -695,30 +754,19 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
         log(f"[train] {line} launches {per_step}")
 
     # The backward's inputs of the last step, for timing B2 on a real
-    # step's rois: the autograd Function's backward, wrapped.
+    # step's rois.
     step_args = []
-    backward = roi_align_mod.MultilevelRoiAlign.backward
-
-    def capture(ctx, g):
-        rois, level_idx = ctx.saved_tensors[:2]
-        step_args[:] = [(dict(ctx.shapes), ctx.dtype, rois.clone(), level_idx.clone(),
-                         g.to(ctx.dtype).contiguous().clone(), ctx.sampling_ratio)]
-        return backward(ctx, g)
-
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    roi_align_mod.MultilevelRoiAlign.backward = staticmethod(capture)
-    try:
+    with captured_backward(step_args, lambda shapes: True):
         state = train(cfg, steps=steps, device=dev, variables=variables, log=on_step)
-    finally:
-        roi_align_mod.MultilevelRoiAlign.backward = staticmethod(backward)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
 
     bad = [i for i, (_, m, _) in enumerate(steps_seen)
-           if m["nonfinite"] != 0.0 or not all(np.isfinite(v) for v in m.values())]
+           if m["nonfinite"] != 0.0 or not finite_line(m)]
     if len(steps_seen) != steps or bad:
         raise AssertionError(f"train: {len(steps_seen)} of {steps} steps, non-finite at {bad}")
     if not rehearsal:
@@ -746,17 +794,348 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
             f"{buffers_same}, trainable moved {moved} of {n_train}")
     times = [t for t, _, _ in steps_seen]
     wall = (times[-1] - times[0]) / (len(times) - 1)
-    per_step = float(np.mean([m["seconds"] for _, m, _ in steps_seen[1:]]))
+    stall = float(np.mean([m["data_stall_ms"] for _, m, _ in steps_seen[1:]]))
     log(f"[train] r50_fpn_coco{' (rehearsal: tiny)' if rehearsal else ''} batch "
         f"{cfg.train.per_device_batch}, {steps} steps in {time.perf_counter() - t0:.2f} s "
-        f"(build included); after the first: {per_step:.4f} s a step, {wall:.4f} s a step "
-        f"with the batch assembly; peak memory {peak:.2f} GiB; "
+        f"(build and the synthetic set's rendering included); after the first: {wall:.4f} s "
+        f"a step with the batch assembly, of which data_stall_ms {stall:.2f} (time in "
+        f"next(loader)); peak memory {peak:.2f} GiB; "
         f"loss {steps_seen[0][1]['loss']:.4f} -> {steps_seen[-1][1]['loss']:.4f}; "
         f"frozen {n_frozen} parameters and all buffers unchanged, {moved} of {n_train} "
         f"trainable moved; launches {launches}")
     if not step_args:
         raise AssertionError("train: the ROIAlign backward was never called")
     return {"launches": launches, "step_args": step_args[0], "state": state, "cfg": cfg}
+
+
+def torchvision_resnet50(seed: int) -> dict:
+    """A ResNet-50 state_dict in torchvision's layout and key names
+    (``fc.*`` and ``num_batches_tracked`` included), from ``seed``:
+    lecun-normal convolutions and near-identity BN statistics."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(key, cout, cin, k):
+        sd[f"{key}.weight"] = torch.randn((cout, cin, k, k), generator=g) / (cin * k * k) ** 0.5
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = 1.0 + 0.01 * torch.randn(c, generator=g)
+        sd[f"{key}.bias"] = 0.01 * torch.randn(c, generator=g)
+        sd[f"{key}.running_mean"] = 0.01 * torch.randn(c, generator=g)
+        sd[f"{key}.running_var"] = 1.0 + 0.01 * torch.rand(c, generator=g)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for li, (n, width) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512)), start=1):
+        for b in range(n):
+            t = f"layer{li}.{b}"
+            for ci, (cout, k) in enumerate(((width, 1), (width, 3), (4 * width, 1)), start=1):
+                conv(f"{t}.conv{ci}", cout, cin if ci == 1 else width, k)
+                bn(f"{t}.bn{ci}", cout)
+            if b == 0:
+                conv(f"{t}.downsample.0", 4 * width, cin, 1)
+                bn(f"{t}.downsample.1", 4 * width)
+            cin = 4 * width
+    sd["fc.weight"] = 0.01 * torch.randn((1000, 2048), generator=g)
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def phase_roidb(cfg, rehearsal: bool, seed: int, missing_path: str, batch: int, steps: int):
+    """Sixteen landscape and eight portrait uint8 records (480x640 and
+    640x480; a quarter of that in the rehearsal) rendered like the
+    synthetic set's classes 1-4, one landscape record with an inverted
+    box and one whose image file does not exist.  The missing record sits
+    where the schedule's first landscape batch draws a row, so that the
+    run meets it (every landscape record has the same aspect, so where it
+    sits does not change the schedule).  Raises unless the first
+    ``steps`` batches hold both orientations."""
+    import dataclasses
+    import itertools
+
+    from mx_rcnn_tpu_torch.data.datasets import SyntheticDataset
+    from mx_rcnn_tpu_torch.data.loader import DetectionLoader
+
+    hw = {"land": (120, 160), "port": (160, 120)} if rehearsal else \
+        {"land": (480, 640), "port": (640, 480)}
+    roidb = []
+    for tag, n in (("land", 18), ("port", 8)):
+        ds = SyntheticDataset(num_images=n, image_hw=hw[tag], num_classes=5,
+                              seed=seed + (tag == "port"))
+        roidb += [dataclasses.replace(ds.record(i), image_id=f"{tag}{i}") for i in range(n)]
+    inv, miss = roidb[16], roidb[17]
+    roidb[16] = dataclasses.replace(inv, image_id="inverted",
+                                    boxes=inv.boxes[:, [2, 1, 0, 3]].copy())
+    roidb[17] = dataclasses.replace(miss, image_id="missing", image_array=None,
+                                    image_path=missing_path)
+    probe = DetectionLoader(roidb, cfg.data, batch, "cpu", seed=cfg.train.seed)
+    specs = list(itertools.islice(probe._batch_index_specs(), steps))
+    kinds = [roidb[int(idx[0])].aspect >= 1 for idx, _ in specs]
+    if all(kinds) or not any(kinds):
+        raise AssertionError(f"roidb: the first {steps} batches hold one orientation only")
+    first = next(int(j) for idx, _ in specs for j in idx
+                 if roidb[int(j)].aspect >= 1 and roidb[int(j)].image_id != "inverted")
+    roidb[first], roidb[17] = roidb[17], roidb[first]
+    return roidb
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(nondeterministic: list):
+    """Every op on its deterministic algorithm (``cudnn.benchmark`` off;
+    an op that has none warns instead of raising, and its name goes to
+    ``nondeterministic``); the previous settings come back after."""
+    import warnings
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(), torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = False
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        try:
+            yield nondeterministic
+        finally:
+            torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+            torch.backends.cudnn.benchmark = prev[2]
+            nondeterministic.extend(sorted({
+                str(w.message).split(" does not have a deterministic")[0] for w in seen
+                if "does not have a deterministic" in str(w.message)}))
+
+
+def roidb_phase(dev, rehearsal: bool, seed: int, steps: int = 8) -> dict:
+    """Phase 7: ``r50_fpn_coco`` at full width trained on a roidb from a
+    torchvision-layout ResNet-50 file (``pretrained=``), preempted by a
+    real SIGTERM, resumed, then evaluated.  Run A takes 8 steps
+    uninterrupted; run B, the same config in another workdir, gets a
+    SIGTERM from its log callback at the step-2 line, must raise
+    ``Preempted`` there after an emergency checkpoint at step 2 (before
+    the first cadence checkpoint, step 4), and resumes to step 8.  Both
+    run under deterministic algorithms; B's final state must equal A's
+    bitwise (or within 1e-3 of each tensor's largest value, if an op
+    without a deterministic CUDA algorithm ran: it is named).  Checked
+    too: the import (the backbone equals the file's tensors; frozen stem,
+    stage 1 and FrozenBN buffers unchanged by training), both runs' batches
+    against ``_batch_index_specs`` (indices and flips, both orientations),
+    each quarantine once in ``quarantine.jsonl``, B1 and B2 in every step,
+    ``metrics.jsonl`` steps increasing, the checkpoint steps and tree CRC.
+    Then ``run_eval`` on 16 synthetic val images (B1 must launch)."""
+    import itertools
+    import shutil
+    import signal
+
+    from mx_rcnn_tpu_torch.cli.eval_cli import run_eval
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.data.cache import quarantine_read
+    from mx_rcnn_tpu_torch.data.loader import DetectionLoader
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
+    )
+    from mx_rcnn_tpu_torch.train import checkpoint as ckpt
+    from mx_rcnn_tpu_torch.train import loop
+    from mx_rcnn_tpu_torch.train.import_torch import map_torch_resnet
+    from mx_rcnn_tpu_torch.train.preemption import Preempted
+
+    counters = {"roi_align": multilevel_roi_align_cuda,
+                "roi_align_bwd": multilevel_roi_align_bwd_cuda}
+    overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic",
+                 "data.flip=true", "train.checkpoint_every=4", "train.log_every=2"]
+    if rehearsal:
+        # A non-square canvas, so that the rehearsal batches portrait apart.
+        overrides += ["model.backbone.freeze_stages=2", "data.image_size=96,128"]
+    cfg = apply_overrides(get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco"),
+                          overrides)
+    batch = 2
+    cfg = apply_overrides(cfg, [f"train.per_device_batch={batch}"])
+    work = os.path.join(ROOT, "runs", f"chip_smoke_roidb_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    saved = {"save": loop.save_checkpoint, "restore": loop.restore_checkpoint}
+    times = {"save": [], "restore": []}
+
+    def timed(key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = saved[key](*args, **kw)
+            times[key].append((args[1].step, time.perf_counter() - t0))
+            return out
+        return call
+
+    try:
+        pth = os.path.join(work, "resnet50.pth")
+        file_sd = torchvision_resnet50(seed)
+        torch.save(file_sd, pth)
+        roidb = phase_roidb(cfg, rehearsal, seed, os.path.join(work, "missing.jpg"), batch, steps)
+        # The import: every backbone tensor is the file's.
+        model = loop.build_all(cfg, dev, pretrained=pth)[0]
+        mapped = map_torch_resnet(file_sd)
+        start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+        frozen += [n for n, _ in model.named_buffers()]
+        imported = (sorted(mapped) == sorted(k for k in start if k.startswith("backbone."))
+                    and all(torch.equal(start[k], v) for k, v in mapped.items()))
+        del model
+        if not imported:
+            raise AssertionError("roidb: the backbone is not the pretrained file's")
+
+        def drive(name, log_line, loader, **kw):
+            """One train() call: its lines, batches and per-step launches."""
+            out = {"lines": [], "specs": [], "launches": []}
+            assemble = loader._assemble
+
+            def watched(idxs, flips):
+                out["launches"].append({k: fn.launches for k, fn in counters.items()})
+                for fn in counters.values():
+                    fn.launches = 0
+                out["specs"].append(([int(j) for j in idxs], [bool(f) for f in flips]))
+                return assemble(idxs, flips)
+
+            def on_line(line):
+                out["lines"].append((time.perf_counter(), json.loads(line)))
+                log(f"[roidb:{name}] {line}")
+                log_line(out["lines"][-1][1])
+
+            for fn in counters.values():
+                fn.launches = 0
+            loader._assemble = watched
+            try:
+                out["state"] = loop.train(cfg, steps=steps, device=dev, log=on_line,
+                                          workdir=os.path.join(work, name), pretrained=pth,
+                                          loader=loader, **kw)
+            except Preempted as e:
+                out["preempted"] = (e, time.perf_counter())
+            finally:
+                loader._assemble = assemble
+                out["launches"] = out["launches"][1:] + [
+                    {k: fn.launches for k, fn in counters.items()}]
+            return out
+
+        def loader_for(name):
+            return DetectionLoader(roidb, cfg.data, batch, dev, seed=cfg.train.seed,
+                                   quarantine_path=os.path.join(work, name, cfg.name,
+                                                                "quarantine.jsonl"))
+
+        def preempt_at_2(m):
+            if m["step"] == 2:
+                sent.append(time.perf_counter())
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        sent, nondeterministic, portrait = [], [], []
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        loader_a, loader_b = loader_for("A"), loader_for("B")
+        expected = [([int(j) for j in idx], [bool(f) for f in fl]) for idx, fl in
+                    itertools.islice(loader_a._batch_index_specs(), steps)]
+        loop.save_checkpoint, loop.restore_checkpoint = timed("save"), timed("restore")
+        t0 = time.perf_counter()
+        with deterministic_algorithms(nondeterministic), \
+                captured_backward(portrait, lambda shapes: shapes[2][0] > shapes[2][1]):
+            run_a = drive("A", lambda m: None, loader_a)
+            run_b = drive("B", preempt_at_2, loader_b)
+            run_b2 = drive("B", lambda m: None, loader_b, resume=True)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else \
+            float("nan")
+        loop.save_checkpoint, loop.restore_checkpoint = saved["save"], saved["restore"]
+
+        # Preemption: Preempted at the step-2 drain, saved at 2, not yet at 4.
+        ckpt_b = loop.checkpoint_dir(cfg, os.path.join(work, "B"))
+        pre = run_b.get("preempted")
+        if pre is None or pre[0].step != 2 or pre[0].ckpt_dir != ckpt_b:
+            raise AssertionError(f"roidb: run B was not preempted at step 2 ({pre})")
+        emergency = [t for s, t in times["save"] if s == 2]
+        restores = [t for s, t in times["restore"]]
+        ckpt_a = loop.checkpoint_dir(cfg, os.path.join(work, "A"))
+        state_a, state_b = run_a["state"], run_b2["state"]
+        problems = []
+        if ckpt.all_steps(ckpt_a) != [0, 4, 8] or ckpt.all_steps(ckpt_b) != [0, 2, 4, 8]:
+            problems.append(f"checkpoint steps {ckpt.all_steps(ckpt_a)}, {ckpt.all_steps(ckpt_b)}")
+        crcs = [ckpt.read_manifest(d, 8)["tree_crc"] for d in (ckpt_a, ckpt_b)]
+        steps_ab = [(s.step, s.optimizer.step) for s in (state_a, state_b)]
+        if steps_ab != [(steps, steps)] * 2:
+            problems.append(f"step counts {steps_ab}")
+        # The schedule: the batches each run drew.
+        if run_a["specs"] != expected or run_b["specs"] + run_b2["specs"] != expected:
+            problems.append("a run left the loader's schedule")
+        kinds = {roidb[idx[0]].aspect >= 1 for idx, _ in expected}
+        flips = sum(f for _, fl in expected for f in fl)
+        # Quarantine: each bad record journaled once in each run.
+        for name in ("A", "B"):
+            rows = quarantine_read(os.path.join(work, name, cfg.name, "quarantine.jsonl"))
+            if sorted(r["image_id"] for r in rows) != ["inverted", "missing"]:
+                problems.append(f"run {name} quarantined {[r['image_id'] for r in rows]}")
+        # Launches in every step; metrics.jsonl steps increasing.
+        per_step = run_a["launches"] + run_b["launches"] + run_b2["launches"]
+        if len(per_step) != 2 * steps:
+            problems.append(f"{len(per_step)} steps counted")
+        if not rehearsal and any(v < 1 for c in per_step for v in c.values()):
+            problems.append(f"B1 or B2 not launched in some step: {per_step}")
+        for name in ("A", "B"):
+            with open(os.path.join(work, name, cfg.name, "metrics.jsonl")) as f:
+                rows = [json.loads(x)["step"] for x in f]
+            if rows != sorted(set(rows)) or rows[-1] != steps:
+                problems.append(f"run {name} metrics.jsonl steps {rows}")
+        lines = [m for run in (run_a, run_b, run_b2) for _, m in run["lines"]]
+        if not all(finite_line(m) and m["nonfinite"] == 0.0 for m in lines):
+            problems.append("non-finite metrics")
+        # The import survives training where nothing trains it.
+        final_a = {k: v.detach().cpu() for k, v in state_a.model.state_dict().items()}
+        if not all(torch.equal(final_a[k], start[k]) for k in frozen):
+            problems.append("a frozen parameter or FrozenBN buffer moved")
+        # B's final state against A's.
+        final_b = {k: v.detach().cpu() for k, v in state_b.model.state_dict().items()}
+        tensors = [(final_a[k], final_b[k]) for k in final_a] + [
+            (x.cpu(), y.cpu()) for x, y in zip(state_a.optimizer.trace, state_b.optimizer.trace)]
+        bitwise = all(torch.equal(x, y) for x, y in tensors)
+        worst = max(float((x - y).abs().max() / x.abs().max().clamp(min=1e-12))
+                    for x, y in tensors)
+        if nondeterministic:
+            same = worst <= 1e-3
+        else:
+            same = bitwise and crcs[0] == crcs[1]
+        if not same:
+            problems.append(f"run B ends apart from run A (worst {worst:.3g} of the largest "
+                            f"value; ops without a deterministic algorithm: {nondeterministic})")
+        if len(kinds) != 2 or not portrait:
+            problems.append("no landscape or no portrait batch")
+        launches = {k: sum(c[k] for c in per_step) for k in counters}
+
+        img_s = [m["img_s"] for _, m in run_a["lines"][1:]]
+        stall = [m["data_stall_ms"] for _, m in run_a["lines"][1:]]
+        log(f"[roidb] {cfg.name}{' (rehearsal: tiny)' if rehearsal else ''} batch {batch}, "
+            f"{len(roidb)} records, runs A, B (preempted at 2) and B resumed: {wall:.2f} s in "
+            f"all; A after its first drain {np.mean(img_s):.2f} img/s (drains {img_s}), "
+            f"data_stall_ms {np.mean(stall):.2f} ({stall}); emergency save "
+            f"{emergency} s, SIGTERM to Preempted {pre[1] - sent[0]:.3f} s, restore "
+            f"{restores} s; peak memory {peak:.2f} GiB; {flips} of {batch * steps} images "
+            f"flipped; checkpoints A {ckpt.all_steps(ckpt_a)} B {ckpt.all_steps(ckpt_b)}; "
+            f"tree CRC A/B {crcs}; B equals A bitwise={bitwise} (worst {worst:.3g}); ops "
+            f"without a deterministic algorithm: {nondeterministic}; launches {launches}")
+
+        # The final eval pass, as train_cli runs it.
+        n = 4 if rehearsal else 16
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        metrics = run_eval(cfg, state=state_b, limit=n, device=dev)
+        eval_wall = time.perf_counter() - t0
+        eval_b1 = multilevel_roi_align_cuda.launches
+        launches["roi_align"] += eval_b1
+        log(f"[roidb:eval] {n} synthetic val images: {n / eval_wall:.2f} img/s end to end "
+            f"({eval_wall:.2f} s, model build and rendering included); B1 launches {eval_b1}; "
+            f"metrics {json.dumps(metrics, sort_keys=True)}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            problems.append("non-finite eval metrics")
+        if not rehearsal and eval_b1 < 1:
+            problems.append("B1 never launched in the eval")
+        if problems:
+            raise AssertionError(f"roidb: {problems}")
+    finally:
+        loop.save_checkpoint, loop.restore_checkpoint = saved["save"], saved["restore"]
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "step_args": portrait[0]}
 
 
 @contextlib.contextmanager
@@ -1033,9 +1412,9 @@ def train_reference_phase(dev, seed: int) -> None:
 # their own.)
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu",
-                  "mx_rcnn_tpu/ops/pallas/roi_align.py:393", ("full", "train", "eval")),
+                  "mx_rcnn_tpu/ops/pallas/roi_align.py:393", ("full", "train", "eval", "roidb")),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
-                      "mx_rcnn_tpu/ops/pallas/roi_align.py:623", ("train",)),
+                      "mx_rcnn_tpu/ops/pallas/roi_align.py:623", ("train", "roidb")),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
                      "mx_rcnn_tpu/ops/pallas/middle.py:145", ("full",)),
     "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75",
@@ -1074,9 +1453,9 @@ def parent_phase(dev, parent: str, kernels: dict) -> dict:
     """Hold this tree's kernels bitwise against another tree's (``parent``,
     e.g. the parent commit unpacked by ``git archive``) on this run's
     inputs, timed in turns (parent, this, this, parent), as a call and as
-    the kernels alone: B1 in bf16 and f32 on serving, train-step and edge
-    rois, B3 at the serving shape and at k = 2000, B2 on its four cases,
-    B4 on its three shapes.  The parent's kernels are reached through its
+    the kernels alone: B1 in bf16 and f32 on serving, train-step,
+    portrait-step and edge rois, B3 at the serving shape and at k = 2000,
+    B2 on its five cases, B4 on its three shapes.  The parent's kernels are reached through its
     own wrappers (``ops/cuda``), which set up its own C entry points; its
     sources are built first, and a failed build raises."""
     from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
@@ -1155,6 +1534,9 @@ def main() -> int:
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
         return 2
+    # cuBLAS reads it at its first call; phase 7 runs under deterministic
+    # algorithms, which require it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if args.cpu_rehearsal and args.parent:
         log("chip_smoke: --parent needs the card")
         return 2
@@ -1191,11 +1573,11 @@ def main() -> int:
             f"({k['bound'][1]})")
     paths = serving_phase(dev, args.cpu_rehearsal, args.seed)
     paths["train"] = train_phase(dev, args.cpu_rehearsal, args.seed)
-    backward_cases_phase(dev, args.cpu_rehearsal, args.seed, paths["train"]["step_args"],
-                         kernels)
-    forward_cases_phase(dev, args.cpu_rehearsal, args.seed, paths["train"]["step_args"],
-                        kernels)
     paths["eval"] = eval_phase(dev, args.cpu_rehearsal, paths["train"])
+    paths["roidb"] = roidb_phase(dev, args.cpu_rehearsal, args.seed)
+    steps = {"step": paths["train"]["step_args"], "step_portrait": paths["roidb"]["step_args"]}
+    backward_cases_phase(dev, args.cpu_rehearsal, args.seed, steps, kernels)
+    forward_cases_phase(dev, args.cpu_rehearsal, args.seed, steps, kernels)
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)

@@ -8,8 +8,7 @@ layout, TPU layout rewrites such as ``stem_s2d``/``c2_pad``/
 ``packed_head``/``fold_frozen_bn``, speed-only knobs such as
 ``assign_block``/``topk_block``/``roi_block``/``topk_impl`` whose forms
 are bit-identical to the dense or stable ones the port computes, the
-observability and fleet planes) are left out, apart from
-``data.aspect_grouping`` (see its comment); the port always executes
+observability and fleet planes) are left out; the port always executes
 the canonical forms.
 
 Two backend knobs keep their JAX-side values so a config reads the same in
@@ -149,14 +148,17 @@ class DataConfig:
     short_side: int = 800
     max_side: int = 1333
     max_gt_boxes: int = 100
+    # Horizontal flip augmentation of training batches, one draw an image.
+    flip: bool = True
     pixel_mean: tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: tuple[float, float, float] = (58.395, 57.12, 57.375)
-    # Not ported: nothing reads it (aspect grouping comes with real-data
-    # training).  Kept so that the JAX package's --set lines parse.
+    # Training batches hold one orientation each, landscape with landscape
+    # and portrait with portrait (data/loader.py::DetectionLoader); a
+    # non-square canvas requires it.
     aspect_grouping: bool = True
     # VOC: promote "difficult" objects to real gt instead of ignore regions.
     use_diff: bool = False
-    # The parsed-roidb cache is not ported: "" only.
+    # Parsed-roidb pickle cache (data/datasets.py::_CachedRoidb); "" = off.
     cache_dir: str = ""
 
 
@@ -195,6 +197,15 @@ class TrainConfig:
     seed: int = 0
     # Save <workdir>/<name>/ckpt every this many steps, and after the last.
     checkpoint_every: int = 5000
+    # Metrics drain (one host transfer, one log line) every this many steps.
+    log_every: int = 20
+    # NaN guardian (train/guardian.py): rollback-and-skip retries allowed
+    # before a non-finite metric becomes a hard TrainingDiverged error.
+    # 0 = detect-and-raise immediately (no rollback).
+    guardian_rollbacks: int = 2
+    # Loss-spike early warning: interval mean this many sigma above the
+    # trailing-window mean logs loudly (no rollback, just visibility).
+    guardian_spike_z: float = 8.0
 
 
 @dataclass(frozen=True)

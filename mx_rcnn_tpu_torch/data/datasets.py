@@ -14,13 +14,18 @@
 * :class:`VocDataset`: PASCAL VOC annotations read with ``xml.etree``;
   difficult objects kept as ignore regions unless ``use_diff``.
 
-The parsed-roidb cache (``data.cache_dir``) is not ported.
+With ``data.cache_dir`` set, COCO and VOC roidbs are pickled there on
+first parse and read back while their annotation files are unchanged
+(:class:`_CachedRoidb`).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import pickle
+import uuid
 import xml.etree.ElementTree as ET
 from typing import Optional
 
@@ -176,16 +181,119 @@ class VocDataset:
         return [self._parse(i) for i in self.image_index]
 
 
+# Bump when roidb PARSING changes (crowd ordering, box conventions, new
+# RoiRecord fields): the fingerprint only sees the annotation files, so a
+# parser fix must invalidate existing caches itself.
+_CACHE_VERSION = 2
+
+
+class _CachedRoidb:
+    """Lazy parsed-roidb pickle cache (the reference's
+    ``data/cache/<name>_gt_roidb.pkl``).  On a hit the dataset is never
+    constructed, which skips the COCO annotation json parse.  Entries are
+    keyed by the dataset root and the annotation source's fingerprint, so
+    edited annotations re-parse and a relocated copy misses.  The key also
+    names this package: a pickle of the JAX package's records, in a
+    ``cache_dir`` both packages share, is never read here (unpickling it
+    would import that package).  Attribute access (``classes`` etc.)
+    constructs the dataset on demand."""
+
+    def __init__(self, factory, name: str, cache_dir: str, split: str,
+                 root: str, fingerprint) -> None:
+        self._factory = factory
+        self._name = name
+        self._cache_dir = cache_dir
+        self._split = split
+        self._root = root
+        self._fingerprint = fingerprint  # () -> Optional[str]
+        self._ds = None
+
+    def _dataset(self):
+        if self._ds is None:
+            self._ds = self._factory()
+        return self._ds
+
+    def __getattr__(self, name):
+        return getattr(self._dataset(), name)
+
+    def roidb(self) -> list[RoiRecord]:
+        fp = self._fingerprint()
+        if fp is None:
+            return self._dataset().roidb()
+        key = hashlib.sha1(
+            f"mx_rcnn_tpu_torch|v{_CACHE_VERSION}|{os.path.abspath(self._root)}|{fp}".encode()
+        ).hexdigest()[:16]
+        path = os.path.join(self._cache_dir, f"{self._name}_{self._split}_{key}_gt_roidb.pkl")
+        if os.path.exists(path):
+            try:
+                with open(path, "rb") as f:
+                    return pickle.load(f)
+            except (OSError, EOFError, ImportError, AttributeError, TypeError, ValueError,
+                    pickle.UnpicklingError):
+                pass  # a torn or stale entry: re-parse and replace it below
+        roidb = self._dataset().roidb()
+        os.makedirs(self._cache_dir, exist_ok=True)
+        # A unique tmp per writer: concurrent starts over one cache_dir
+        # must not interleave into one file.
+        tmp = f"{path}.{uuid.uuid4().hex}.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(roidb, f)
+        os.replace(tmp, path)
+        return roidb
+
+
+def _mtime_fingerprint(path: str) -> Optional[str]:
+    """mtime_ns and size of one file, or None if unreadable (no cache)."""
+    try:
+        st = os.stat(path)
+        return f"{st.st_mtime_ns}:{st.st_size}"
+    except OSError:
+        return None
+
+
+def _voc_fingerprint(devkit: str, index_file: str) -> Optional[str]:
+    """The ImageSets file's fingerprint, the newest Annotations xml mtime,
+    the xml count and their total size: editing any annotation, or
+    replacing one with an older copy, invalidates."""
+    base = _mtime_fingerprint(index_file)
+    if base is None:
+        return None
+    newest = count = total = 0
+    try:
+        with os.scandir(os.path.join(devkit, "Annotations")) as it:
+            for e in it:
+                if e.name.endswith(".xml"):
+                    st = e.stat()
+                    newest = max(newest, st.st_mtime_ns)
+                    count += 1
+                    total += st.st_size
+    except OSError:
+        return None
+    return f"{base}|{newest}:{count}:{total}"
+
+
 def build_dataset(cfg: DataConfig, split: Optional[str] = None, train: bool = True):
-    """The dataset of ``cfg.data.dataset`` for ``split`` (default: the
-    config's train or val split)."""
-    if cfg.cache_dir:
-        raise NotImplementedError("data.cache_dir: the roidb cache is not ported")
+    """The dataset of ``cfg.dataset`` for ``split`` (default: the config's
+    train or val split), behind the roidb cache when ``cfg.cache_dir``."""
     split = split or (cfg.train_split if train else cfg.val_split)
     if cfg.dataset == "synthetic":
         return SyntheticDataset(image_hw=cfg.image_size)
     if cfg.dataset == "coco":
-        return CocoDataset(cfg.root, split)
-    if cfg.dataset == "voc":
-        return VocDataset(cfg.root, split, use_diff=cfg.use_diff)
-    raise ValueError(f"unknown dataset {cfg.dataset!r}")
+        factory = lambda: CocoDataset(cfg.root, split)  # noqa: E731
+        ann = os.path.join(cfg.root, "annotations", f"instances_{split}.json")
+        fingerprint = lambda: _mtime_fingerprint(ann)  # noqa: E731
+    elif cfg.dataset == "voc":
+        factory = lambda: VocDataset(cfg.root, split, use_diff=cfg.use_diff)  # noqa: E731
+        year, imageset = split.split("_")
+        devkit = os.path.join(cfg.root, f"VOC{year}")
+        index = os.path.join(devkit, "ImageSets", "Main", f"{imageset}.txt")
+        # use_diff changes the parse (difficult promoted to real gt).
+        fingerprint = lambda: (  # noqa: E731
+            None if (fp := _voc_fingerprint(devkit, index)) is None
+            else f"{fp}|diff{int(cfg.use_diff)}"
+        )
+    else:
+        raise ValueError(f"unknown dataset {cfg.dataset!r}")
+    if cfg.cache_dir:
+        return _CachedRoidb(factory, cfg.dataset, cfg.cache_dir, split, cfg.root, fingerprint)
+    return factory()

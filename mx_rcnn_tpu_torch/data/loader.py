@@ -1,47 +1,92 @@
-"""Batch assembly (the per-image path of
-``mx_rcnn_tpu/data/loader.py::DetectionLoader``).
+"""Batch assembly and the train schedule (port of
+``mx_rcnn_tpu/data/loader.py``).
 
 Each record is letterboxed as uint8 into its oriented canvas (the
 landscape ``data.image_size``, transposed for portrait records) by the
 loader's scale rule (short side to ``short_side`` unless the long side
 passes ``max_side``, clamped to the canvas), its boxes scaled by the same
 factor, and its gt padded to ``data.max_gt_boxes`` with ``gt_valid`` (and
-``gt_ignore`` where a record has crowd or difficult regions).  Pixels stay
-uint8; the graph normalizes them (``detection/graph.py::prep_images``).
-The resize is ``data/transforms.py``'s torch bilinear, rounded back to
-uint8; an image already at its letterbox size is not resampled.
+``gt_ignore`` where the roidb has crowd or difficult regions anywhere).
+Pixels stay uint8; the graph normalizes them
+(``detection/graph.py::prep_images``).  The resize is
+``data/transforms.py``'s torch bilinear on the batch's device, rounded
+back to uint8; an image already at its letterbox size is not resampled.
+A flipped record's pixels flip on the host before the upload and its
+boxes in original coordinates before the scale, as the JAX loader flips
+before its resize.
 
-Training cycles through the records in order (:func:`batches`); eval runs
-one pass in the JAX loader's schedule (:func:`eval_index_specs`).  Not
-ported: flips, aspect grouping of training batches, shuffling, prefetch,
-quarantine and the input service.
+Training draws batches from :class:`DetectionLoader`, whose schedule
+(epoch shuffle, aspect grouping, flips) is the JAX loader's, bit for bit;
+eval runs one pass in the JAX loader's eval order (:func:`eval_index_specs`).
+Not ported: the prefetch thread, the thread pool, the input service, the
+tensor cache, external proposals, masks and the chaos hooks.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+import dataclasses
+import logging
+import os
+import time
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from mx_rcnn_tpu_torch.config import DataConfig
 from mx_rcnn_tpu_torch.data.batch import Batch
+from mx_rcnn_tpu_torch.data.cache import quarantine_append
 from mx_rcnn_tpu_torch.data.roidb import RoiRecord
-from mx_rcnn_tpu_torch.data.transforms import oriented_canvas, resize_linear, resize_scale
+from mx_rcnn_tpu_torch.data.transforms import hflip, oriented_canvas, resize_linear, resize_scale
+
+log = logging.getLogger("mx_rcnn_tpu_torch")
+
+
+def annotation_error(rec: RoiRecord) -> Optional[str]:
+    """Why this record's annotations are unusable (malformed box arrays,
+    non-finite or inverted coordinates, class ids below 1, ignore flags of
+    another length), or None if they are fine."""
+    boxes = np.asarray(rec.boxes)
+    if boxes.ndim != 2 or boxes.shape[1] != 4:
+        return f"boxes shape {boxes.shape} is not (n, 4)"
+    if boxes.dtype.kind not in "fiu" or not np.isfinite(boxes.astype(np.float64, copy=False)).all():
+        return "non-finite or non-numeric box coordinates"
+    if (boxes[:, 2] < boxes[:, 0]).any() or (boxes[:, 3] < boxes[:, 1]).any():
+        return "inverted box (x2 < x1 or y2 < y1)"
+    cls = np.asarray(rec.gt_classes)
+    if cls.shape != (len(boxes),):
+        return f"gt_classes shape {cls.shape} does not match {len(boxes)} boxes"
+    if len(cls) and cls.min() < 1:
+        return "class id < 1 (foreground labels are 1-based)"
+    if rec.ignore is not None and np.asarray(rec.ignore).shape != (len(boxes),):
+        return "ignore flags do not match the box count"
+    return None
+
+
+def roidb_with_ignore(roidb: Sequence[RoiRecord], bad: Sequence[str] = ()) -> bool:
+    """Whether batches of ``roidb`` carry ``gt_ignore``: decided once over
+    the whole roidb (records whose ids are in ``bad``, blanked at
+    assembly, left out), so every batch of a run has one structure."""
+    bad = set(bad)
+    return any(r.ignore_flags.any() for r in roidb if r.image_id not in bad)
 
 
 def load_image(rec: RoiRecord) -> np.ndarray:
     """The record's (H, W, 3) uint8 RGB pixels: its in-memory array, or its
-    file decoded with PIL."""
+    file decoded with PIL.  A missing file raises ``FileNotFoundError``
+    (which the train loader quarantines); an existing file on a host
+    without PIL raises ``RuntimeError``, which nothing quarantines."""
     if rec.image_array is not None:
         return rec.image_array
+    if not os.path.exists(rec.image_path):
+        raise FileNotFoundError(rec.image_path)
     try:
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(f"record {rec.image_id!r}: decoding {rec.image_path} needs PIL, "
                            "which is not installed") from e
     with Image.open(rec.image_path) as im:
-        return np.asarray(im.convert("RGB"), np.uint8)
+        return np.array(im.convert("RGB"), np.uint8)
 
 
 def record_canvas(cfg: DataConfig, rec: RoiRecord) -> tuple[int, int]:
@@ -70,34 +115,55 @@ def letterbox_uint8(image: torch.Tensor, canvas_hw: tuple[int, int], nh: int,
     return canvas
 
 
-def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device) -> Batch:
-    """One batch on ``device`` from uint8 records of one orientation."""
+def _pixels_ok(rec: RoiRecord) -> tuple[np.ndarray, bool]:
+    return load_image(rec), True
+
+
+def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
+             flips: Optional[Sequence[bool]] = None, with_ignore: Optional[bool] = None,
+             load: Callable[[RoiRecord], tuple[np.ndarray, bool]] = _pixels_ok) -> Batch:
+    """One batch on ``device`` from uint8 records of one orientation.
+
+    ``with_ignore``: whether the batch carries ``gt_ignore``, which the
+    train loader and :func:`eval_batches` decide over the whole roidb
+    (:func:`roidb_with_ignore`); None decides it over ``records``, for a
+    caller whose records are the whole roidb.
+    ``flips``: a horizontal flip for each record (default: none).
+    ``load(rec) -> (pixels, ok)``: the record's pixels (default
+    :func:`load_image`); a record loaded with ``ok=False`` is a stand-in
+    whose boxes and classes are kept but whose gt slots are all invalid."""
     canvases = {record_canvas(cfg, rec) for rec in records}
     if len(canvases) > 1:
         raise ValueError(f"records of two orientations in one batch (canvases "
                          f"{sorted(canvases)}); batch portrait and landscape records apart")
+    if with_ignore is None:
+        with_ignore = roidb_with_ignore(records)
     g = cfg.max_gt_boxes
     images, hws, boxes, classes, valid, ignore = [], [], [], [], [], []
-    for rec in records:
-        pixels = load_image(rec)
+    for rec, flip in zip(records, flips or [False] * len(records), strict=True):
+        pixels, ok = load(rec)
         if pixels.dtype != np.uint8:
             raise ValueError(f"record {rec.image_id!r}: the loader takes uint8 images, "
                              f"got {pixels.dtype}")
+        rec_boxes = rec.boxes
+        if flip:
+            pixels, rec_boxes = hflip(pixels, rec_boxes, rec.width)
         scale = record_scale(cfg, rec)
         nh, nw = int(round(rec.height * scale)), int(round(rec.width * scale))
         images.append(letterbox_uint8(torch.from_numpy(pixels).to(device),
                                       record_canvas(cfg, rec), nh, nw))
         hws.append([nh, nw])
-        n = min(len(rec.boxes), g)
+        n = min(len(rec_boxes), g)
         ign = rec.ignore_flags
         gb = np.zeros((g, 4), np.float32)
         gc = np.zeros((g,), np.int32)
         gv = np.zeros((g,), bool)
         gi = np.zeros((g,), bool)
-        gb[:n] = rec.boxes[:n].astype(np.float32) * scale
+        gb[:n] = (rec_boxes.astype(np.float32) * scale)[:n]
         gc[:n] = rec.gt_classes[:n]
-        gv[:n] = ~ign[:n]
-        gi[:n] = ign[:n]
+        if ok:
+            gv[:n] = ~ign[:n]
+            gi[:n] = ign[:n]
         boxes.append(gb)
         classes.append(gc)
         valid.append(gv)
@@ -108,18 +174,166 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device) -> Batch:
         gt_boxes=torch.tensor(np.stack(boxes), device=device),
         gt_classes=torch.tensor(np.stack(classes), device=device),
         gt_valid=torch.tensor(np.stack(valid), device=device),
-        gt_ignore=(torch.tensor(np.stack(ignore), device=device)
-                   if any(r.ignore_flags.any() for r in records) else None),
+        gt_ignore=torch.tensor(np.stack(ignore), device=device) if with_ignore else None,
     )
 
 
-def batches(dataset, batch_size: int, cfg: DataConfig, device) -> Iterator[Batch]:
-    """Train batches of consecutive records, cycling through the dataset."""
-    i = 0
-    while True:
-        recs = [dataset.record((i + k) % len(dataset)) for k in range(batch_size)]
-        i += batch_size
-        yield assemble(recs, cfg, device)
+class DetectionLoader:
+    """Infinite train batches on ``device`` in the JAX loader's schedule
+    (the train half of ``mx_rcnn_tpu/data/loader.py::DetectionLoader``).
+
+    Each epoch is shuffled by ``RandomState(seed + epoch)``; under
+    ``data.aspect_grouping`` landscape (aspect >= 1) and portrait records
+    are batched apart, a group's short tail batch filled by wrapping
+    around the group, and the batches shuffled together; each image draws
+    its flip from one ``RandomState(seed + 17)`` stream (no draw with
+    ``data.flip`` off).  The schedule depends on the roidb alone, so
+    :meth:`iter_from` skips a resumed run's batches without decoding them.
+
+    A record whose annotations are malformed (:func:`annotation_error`) is
+    quarantined at construction; one whose pixels fail to load (an
+    ``OSError`` or ``ValueError``, after ``io_retries`` retries) is
+    quarantined when first met.  Both stay in the schedule as a blank
+    image with no valid gt, and each is journaled once to
+    ``quarantine_path`` (``data/cache.py``).  Any other error, such as
+    PIL missing on the host, propagates.
+
+    Single host only: the JAX loader's ``rank``/``world`` slicing, the
+    same-canvas runs of ``run_length > 1`` (``steps_per_call``,
+    ``accum_steps``), prefetch, the thread pool and the input service are
+    not ported; every run here has length 1."""
+
+    def __init__(self, roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int, device,
+                 seed: int = 0, quarantine_path: Optional[str] = None,
+                 io_retries: int = 2) -> None:
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.device = device
+        self.seed = seed
+        self.quarantine_path = quarantine_path
+        self.io_retries = max(int(io_retries), 0)
+        self._quarantined: set[str] = set()
+        self._bad_annotations: dict[str, str] = {}
+        for r in roidb:
+            why = annotation_error(r)
+            if why is not None and r.image_id not in self._bad_annotations:
+                self._bad_annotations[r.image_id] = why
+                self._quarantine(r, ValueError(why), reason="annotation")
+        self.with_ignore = roidb_with_ignore(roidb, self._bad_annotations)
+        self.roidb = list(roidb)
+        ch, cw = cfg.image_size
+        if ch != cw and not cfg.aspect_grouping:
+            raise ValueError("non-square image_size (orientation-bucketed canvases) "
+                             "requires data.aspect_grouping=true")
+        if not self.roidb:
+            raise ValueError("empty roidb")
+        if not cfg.aspect_grouping and len(self.roidb) < batch_size:
+            raise ValueError(f"{len(self.roidb)} records make no full batch of {batch_size} "
+                             "without data.aspect_grouping")
+
+    # -- ordering ----------------------------------------------------------
+
+    def _epoch_batches(self, epoch: int) -> list[np.ndarray]:
+        """Epoch ``epoch``'s shuffled full batches of roidb indices, each of
+        one orientation under aspect grouping."""
+        n, bs = len(self.roidb), self.batch_size
+        rng = np.random.RandomState(self.seed + epoch)
+        if not self.cfg.aspect_grouping:
+            order = rng.permutation(n)
+            return [order[i:i + bs] for i in range(0, n - bs + 1, bs)]
+        aspects = np.array([r.aspect for r in self.roidb])
+        runs: list[list[np.ndarray]] = []
+        for group in (np.flatnonzero(aspects >= 1), np.flatnonzero(aspects < 1)):
+            if len(group) == 0:
+                continue
+            rng.shuffle(group)
+            batches = [group[i:i + bs] for i in range(0, len(group) - bs + 1, bs)]
+            if len(group) % bs:
+                # Wrap-around fill of the group's tail batch.
+                batches.append(np.resize(group, (len(batches) + 1) * bs)[-bs:])
+            runs.extend([b] for b in batches)
+        rng.shuffle(runs)
+        return [b for r in runs for b in r]
+
+    def _batch_index_specs(self, epochs: Optional[int] = None):
+        """``(roidb indices, flips)`` a batch, in epoch order; infinite
+        unless ``epochs`` bounds it."""
+        epoch = 0
+        rng = np.random.RandomState(self.seed + 17)
+        while epochs is None or epoch < epochs:
+            for batch_idx in self._epoch_batches(epoch):
+                flips = [self.cfg.flip and bool(rng.randint(2)) for _ in range(len(batch_idx))]
+                yield batch_idx, flips
+            epoch += 1
+
+    def _local_spec_stream(self, skip_batches: int = 0):
+        """The specs as plain ints and bools, the first ``skip_batches``
+        drawn and dropped (resume fast-forward: no pixel is decoded)."""
+        specs = self._batch_index_specs()
+        for _ in range(skip_batches):
+            if next(specs, None) is None:
+                return
+        for batch_idx, flips in specs:
+            yield [int(j) for j in batch_idx], [bool(f) for f in flips]
+
+    def iter_from(self, skip_batches: int = 0) -> Iterator[Batch]:
+        """Batches from the ``skip_batches``-th of the schedule on: step k
+        of a resumed run gets the batch step k of an uninterrupted run
+        would have."""
+        for idxs, flips in self._local_spec_stream(skip_batches):
+            yield self._assemble(idxs, flips)
+
+    def __iter__(self) -> Iterator[Batch]:
+        return self.iter_from()
+
+    # -- records -------------------------------------------------------------
+
+    def _assemble(self, idxs: Sequence[int], flips: Sequence[bool]) -> Batch:
+        recs = [self._usable(self.roidb[j]) for j in idxs]
+        return assemble(recs, self.cfg, self.device, flips, self.with_ignore,
+                        load=self._load_image)
+
+    def _usable(self, rec: RoiRecord) -> RoiRecord:
+        """The record, or for quarantined annotations a blank stand-in with
+        no gt that never touches the malformed arrays."""
+        if rec.image_id not in self._bad_annotations:
+            return rec
+        return dataclasses.replace(rec, boxes=np.zeros((0, 4), np.float32),
+                                   gt_classes=np.zeros((0,), np.int32), ignore=None,
+                                   image_array=self._blank_pixels(rec), image_path="")
+
+    @staticmethod
+    def _blank_pixels(rec: RoiRecord) -> np.ndarray:
+        if rec.image_array is not None:
+            return np.zeros_like(rec.image_array)
+        return np.zeros((rec.height, rec.width, 3), np.uint8)
+
+    def _load_image(self, rec: RoiRecord) -> tuple[np.ndarray, bool]:
+        """``(pixels, ok)``: bounded retries on I/O errors, then quarantine
+        and a blank image with ``ok=False``."""
+        err: Optional[BaseException] = None
+        for attempt in range(self.io_retries + 1):
+            try:
+                return load_image(rec), True
+            except (OSError, ValueError) as e:
+                err = e
+                if attempt < self.io_retries:
+                    time.sleep(0.1 * (2 ** attempt))
+        self._quarantine(rec, err)
+        return self._blank_pixels(rec), False
+
+    def _quarantine(self, rec: RoiRecord, error: BaseException, reason: str = "io") -> None:
+        if rec.image_id in self._quarantined:
+            return  # recorded once, not every epoch
+        self._quarantined.add(rec.image_id)
+        retries = self.io_retries if reason == "io" else 0
+        log.error("quarantining image %r (%s; %s: %s) after %d retries; substituting a blank "
+                  "example", rec.image_id, reason, type(error).__name__, error, retries)
+        if self.quarantine_path is not None:
+            quarantine_append(self.quarantine_path, {
+                "image_id": rec.image_id, "path": rec.image_path, "reason": reason,
+                "error": f"{type(error).__name__}: {error}", "retries": retries,
+            })
 
 
 def eval_index_specs(roidb: Sequence[RoiRecord], cfg: DataConfig,
@@ -147,6 +361,11 @@ def eval_index_specs(roidb: Sequence[RoiRecord], cfg: DataConfig,
 def eval_batches(roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int,
                  device) -> Iterator[tuple[Batch, list[RoiRecord]]]:
     """One pass over ``roidb`` in :func:`eval_index_specs` order:
-    ``(batch, records)``, the batch padded to ``batch_size``."""
+    ``(batch, records)``, the batch padded to ``batch_size``.  Whether
+    batches carry ``gt_ignore`` is decided over the whole roidb, as the
+    train loader decides it."""
+    bad = [r.image_id for r in roidb if annotation_error(r) is not None]
+    with_ignore = roidb_with_ignore(roidb, bad)
     for rows, idxs in eval_index_specs(roidb, cfg, batch_size):
-        yield assemble([roidb[j] for j in rows], cfg, device), [roidb[j] for j in idxs]
+        yield (assemble([roidb[j] for j in rows], cfg, device, with_ignore=with_ignore),
+               [roidb[j] for j in idxs])

@@ -1,4 +1,4 @@
-"""Image transforms for serving (port of ``mx_rcnn_tpu/data/transforms.py``).
+"""Image transforms (port of ``mx_rcnn_tpu/data/transforms.py``).
 
 The JAX package resizes on the host with cv2 ``INTER_LINEAR`` (PIL
 ``BILINEAR`` as a fallback).  A GPU host need have neither, so the port
@@ -12,6 +12,7 @@ with a wider support, so PIL differs there by design.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -60,3 +61,18 @@ def normalize_image(image: torch.Tensor, mean, std) -> torch.Tensor:
     m = torch.tensor(mean, dtype=torch.float32, device=image.device)
     s = torch.tensor(std, dtype=torch.float32, device=image.device)
     return (image - m) / s
+
+
+def flip_boxes(boxes: np.ndarray, width: int) -> np.ndarray:
+    """Horizontal box remap, the reference's flipped-roidb convention:
+    x1, x2 = w-1-x2, w-1-x1."""
+    fb = boxes.copy()
+    fb[:, 0] = width - 1 - boxes[:, 2]
+    fb[:, 2] = width - 1 - boxes[:, 0]
+    return fb
+
+
+def hflip(image: np.ndarray, boxes: np.ndarray, width: int) -> tuple[np.ndarray, np.ndarray]:
+    """Horizontal flip of (H, W, C) host pixels and their boxes, both in
+    original coordinates (before any resize)."""
+    return image[:, ::-1].copy(), flip_boxes(boxes, width)

@@ -40,7 +40,7 @@ def make_train_step(pixel_stats=None, seed: int = 0):
         lr = opt.apply(grads, norm)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["nonfinite"] = 1.0 - finite.to(torch.float32)
-        metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
+        metrics["lr"] = torch.full((), lr, dtype=torch.float32, device=norm.device)
         state.step += 1
         return state, metrics
 

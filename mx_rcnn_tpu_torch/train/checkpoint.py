@@ -207,6 +207,27 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def delete_steps_after(ckpt_dir: str, step: int) -> list[int]:
+    """Delete the steps newer than ``step`` (a guardian rollback: a
+    poisoned step must not shadow its retrained replacement, since
+    :func:`save_checkpoint` leaves a step already on disk alone).  Returns
+    the steps deleted."""
+    doomed = [s for s in all_steps(ckpt_dir) if s > step]
+    for s in doomed:
+        # The step directory leaves first, by an atomic rename: a step left
+        # without its manifest would still be read (``read_payload``), a
+        # manifest without its step never is.
+        gone = os.path.join(os.path.abspath(ckpt_dir), f"{_SAVING}-deleted-{s}")
+        shutil.rmtree(gone, ignore_errors=True)
+        os.rename(step_dir(ckpt_dir, s), gone)
+        try:
+            os.remove(manifest_path(ckpt_dir, s))
+        except FileNotFoundError:
+            pass
+        shutil.rmtree(gone)
+    return doomed
+
+
 def read_payload(ckpt_dir: str, step: int) -> dict:
     """One step's payload, after its manifest (when there is one) passes."""
     ok, why = verify_manifest(ckpt_dir, step)
@@ -217,12 +238,18 @@ def read_payload(ckpt_dir: str, step: int) -> dict:
 
 
 def restore_checkpoint(ckpt_dir: str, target: TrainState, step: Optional[int] = None, *,
+                       max_step: Optional[int] = None,
                        validate: Optional[Callable[[dict], bool]] = None) -> TrainState:
     """Restore into ``target`` (in place; returned).  ``step=None`` takes
-    the newest step and walks back to older steps past one that is
-    truncated or corrupt, fails its manifest, or fails ``validate``
-    (called on the payload); an explicit ``step`` does not walk back."""
-    candidates = [step] if step is not None else list(reversed(all_steps(ckpt_dir)))
+    the newest step (at most ``max_step``, if given) and walks back to
+    older steps past one that is truncated or corrupt, fails its manifest,
+    or fails ``validate`` (called on the payload); an explicit ``step``
+    does not walk back."""
+    if step is not None:
+        candidates = [step]
+    else:
+        candidates = [s for s in reversed(all_steps(ckpt_dir))
+                      if max_step is None or s <= max_step]
     if not candidates:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     last_err: Optional[BaseException] = None

@@ -1,15 +1,26 @@
-"""Build and run the single-device trainer (port of the core of
-``mx_rcnn_tpu/train/loop.py``).
+"""Build and run the single-device trainer (port of
+``mx_rcnn_tpu/train/loop.py``, without the mesh, the execution plan,
+stacked steps, the observability plane, the profile window and the
+transfer guard).
 
 :func:`build_all` makes the model (random weights from ``train.seed``,
-or the given ``state_dict``), freezes the reference's backbone prefixes,
-and builds the schedule, the optimizer, the state and the step.
-:func:`train` runs N steps over the synthetic dataset and logs one
-metrics line per step; given a ``workdir`` it saves a checkpoint every
-``train.checkpoint_every`` steps and after the last
-(``<workdir>/<name>/ckpt``, ``train/checkpoint.py``).  Training on COCO or
-VOC (which needs aspect grouping, flips and shuffling), resume, the mesh,
-the guardian and evaluation in the loop are not ported.
+the given ``state_dict``, and a torchvision ResNet ``.pth`` over the
+backbone), freezes the reference's backbone prefixes, and builds the
+schedule, the optimizer, the state and the step.  :func:`train` runs the
+steps over any roidb that ``data/datasets.py::build_dataset`` returns, in
+the JAX loader's batch schedule (``data/loader.py::DetectionLoader``).
+Metrics stay on the card between drains (every ``train.log_every`` steps,
+at checkpoint boundaries and on preemption); a drain reads the interval
+back in one transfer, shows it to the guardian, logs one JSON line and
+appends to ``metrics.jsonl``.  Given a ``workdir``, the run directory
+``<workdir>/<name>`` holds ``ckpt/`` (a step-0 checkpoint, one every
+``train.checkpoint_every`` steps and one after the last),
+``metrics.jsonl``, ``quarantine.jsonl`` and ``config.json``.  Fault
+tolerance: ``resume`` restores the newest finite checkpoint and skips the
+batches it consumed; SIGTERM/SIGINT drain, checkpoint and raise
+``Preempted``; non-finite metrics roll back to the last finite
+checkpoint and skip the offending data, ``train.guardian_rollbacks``
+times, then raise ``TrainingDiverged``.
 
 Runs on the card: ``device=None`` means ``"cuda"``, and with no card it
 raises rather than fall back to the CPU.
@@ -19,21 +30,35 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import time
+import logging
+import os
 from typing import Callable, Optional
 
 import torch
 
 from mx_rcnn_tpu_torch.config import Config, ScheduleConfig
-from mx_rcnn_tpu_torch.data.datasets import SyntheticDataset
-from mx_rcnn_tpu_torch.data.loader import batches
+from mx_rcnn_tpu_torch.data.datasets import build_dataset
+from mx_rcnn_tpu_torch.data.loader import DetectionLoader
+from mx_rcnn_tpu_torch.data.roidb import filter_roidb
 from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
+from mx_rcnn_tpu_torch.parallel.prefetch import PrefetchStats, _timed_pulls
 from mx_rcnn_tpu_torch.parallel.step import make_train_step
-from mx_rcnn_tpu_torch.train.checkpoint import save_checkpoint
+from mx_rcnn_tpu_torch.train.checkpoint import (
+    delete_steps_after,
+    finite_state,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from mx_rcnn_tpu_torch.train.guardian import Guardian
+from mx_rcnn_tpu_torch.train.metrics import ScalarWriter, Speedometer, host_interval_metrics
 from mx_rcnn_tpu_torch.train.optim import SGDMomentum, frozen_mask, make_schedule
+from mx_rcnn_tpu_torch.train.preemption import Preempted, PreemptionGuard
 from mx_rcnn_tpu_torch.train.state import TrainState
 from mx_rcnn_tpu_torch.utils.device import resolve_device
 from mx_rcnn_tpu_torch.weights import init_variables
+
+logger = logging.getLogger("mx_rcnn_tpu_torch")
 
 # The reference's fixed_param_prefix per backbone: stem and stage 1.
 FREEZE_PREFIXES = {
@@ -56,15 +81,22 @@ def scale_schedule_steps(sched: ScheduleConfig, global_batch: int) -> ScheduleCo
     )
 
 
-def build_all(cfg: Config, device=None, variables: Optional[dict] = None):
+def build_all(cfg: Config, device=None, variables: Optional[dict] = None,
+              pretrained: Optional[str] = None):
     """-> (model, optimizer, state, step_fn, global_batch).  ``variables``:
     a ``state_dict`` to start from (default: ``init_variables`` seeded by
-    ``train.seed``).  With ``backbone.freeze_stages > 0`` the backbone's
-    ``FREEZE_PREFIXES`` are frozen."""
+    ``train.seed``); ``pretrained``: a torchvision ResNet ``.pth`` whose
+    tensors then replace the backbone's (``train/import_torch.py``).  With
+    ``backbone.freeze_stages > 0`` the backbone's ``FREEZE_PREFIXES`` are
+    frozen."""
     dev = resolve_device(device)
     model = TwoStageDetector(cfg.model, device=dev)
     if variables is None:
         variables = init_variables(cfg.model, torch.Generator().manual_seed(cfg.train.seed))
+    if pretrained:
+        from mx_rcnn_tpu_torch.train.import_torch import load_pretrained_backbone
+
+        variables = load_pretrained_backbone(variables, pretrained)
     model.load_state_dict(variables)
     global_batch = cfg.train.per_device_batch
     sched = scale_schedule_steps(cfg.train.schedule, global_batch)
@@ -89,36 +121,157 @@ def checkpoint_dir(cfg: Config, workdir: Optional[str] = None) -> str:
     return f"{workdir or cfg.workdir}/{cfg.name}/ckpt"
 
 
+def _flat_config(d: dict, prefix: str = "") -> dict:
+    out = {}
+    for key, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat_config(v, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = v
+    return out
+
+
+class ConfigDriftError(RuntimeError):
+    """``strict_resume``: the resumed config differs from the run-start one."""
+
+
+def _warn_config_drift(cfg: Config, config_json_path: str, strict: bool = False) -> None:
+    """Log every field of ``cfg`` that differs from the run-start config
+    recorded at ``config_json_path`` (a drift changes the schedule or the
+    data order the resumed run replays); with ``strict``, raise
+    :class:`ConfigDriftError` listing them all."""
+    try:
+        with open(config_json_path) as f:
+            saved = _flat_config(json.load(f))
+    except (OSError, ValueError):  # absent, unreadable or corrupt: nothing to compare
+        return
+    current = _flat_config(dataclasses.asdict(cfg))
+    drift = []
+    for key in sorted(set(saved) | set(current)):
+        a, b = saved.get(key), current.get(key)
+        b = list(b) if isinstance(b, tuple) else b
+        if a != b:
+            drift.append(f"{key}: {a!r} -> {b!r}")
+            logger.warning("resume config drift: %s was %r at run start, now %r; schedule "
+                           "and data continuity are NOT guaranteed across this change", key, a, b)
+    if strict and drift:
+        raise ConfigDriftError(f"strict resume: config drifted from the run-start config.json "
+                               f"({config_json_path}):\n  " + "\n  ".join(drift))
+
+
 def train(cfg: Config, steps: Optional[int] = None, device=None,
           variables: Optional[dict] = None, log: Callable[[str], None] = print,
-          workdir: Optional[str] = None) -> TrainState:
-    """Run ``steps`` train steps (default: the schedule's total) on the
-    synthetic dataset, uint8 images on the config's canvas; ``log`` gets
-    one JSON line per step: its metrics and ``seconds``.  With a
-    ``workdir``, checkpoints go to ``<workdir>/<name>/ckpt``.  Returns the
-    final state."""
-    if cfg.data.dataset != "synthetic":
-        raise NotImplementedError(
-            f"training on data.dataset={cfg.data.dataset!r} is not ported (it needs aspect "
-            "grouping, flips and shuffling); set data.dataset=synthetic")
-    model, _, state, step_fn, global_batch = build_all(cfg, device, variables)
+          workdir: Optional[str] = None, resume: bool = False,
+          pretrained: Optional[str] = None, strict_resume: bool = False,
+          loader: Optional[DetectionLoader] = None) -> TrainState:
+    """Train up to step ``steps`` (default: the schedule's total) and
+    return the final state.
+
+    ``log`` gets one JSON line a drain: the step, the interval's metric
+    means (``nonfinite`` included), ``data_stall_ms`` (time in
+    ``next(loader)`` a step) and ``img_s`` (images a second since the
+    previous drain; null at the first).  ``workdir``: the run directory's
+    parent (checkpoints, metrics, quarantine journal, config); without it
+    nothing is written and the guardian can only detect and raise.
+    ``resume``: continue from the newest finite checkpoint, on the same
+    data schedule; ``strict_resume`` makes a config drift from the run's
+    ``config.json`` an error.  ``pretrained``: a torchvision ResNet
+    ``.pth`` for the backbone.  ``loader``: a ``DetectionLoader`` to draw
+    from (default: the filtered train roidb of ``cfg.data``)."""
+    _, _, state, step_fn, global_batch = build_all(cfg, device, variables, pretrained)
+    dev = next(state.model.parameters()).device
     if steps is None:
         steps = scale_schedule_steps(cfg.train.schedule, global_batch).total_steps
-    dataset = SyntheticDataset(image_hw=tuple(cfg.data.image_size),
-                               num_classes=cfg.model.num_classes, seed=cfg.train.seed)
-    dev = next(model.parameters()).device
-    data = batches(dataset, global_batch, cfg.data, dev)
-    for _ in range(steps):
-        batch = next(data)
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        # Reading the metrics waits for the step's last kernel: "seconds"
-        # is the step's wall time, batch assembly excluded.
-        values = {k: float(v) for k, v in metrics.items()}
-        log(json.dumps({"step": state.step, **values,
-                        "seconds": time.perf_counter() - t0}))
-        if workdir and state.step % cfg.train.checkpoint_every == 0:
-            save_checkpoint(checkpoint_dir(cfg, workdir), state)
+    run_dir = f"{workdir or cfg.workdir}/{cfg.name}"
+    ckpt_dir = checkpoint_dir(cfg, workdir)
+    if resume and latest_step(ckpt_dir) is not None:
+        # Walks back past a truncated, corrupt or non-finite newest step.
+        restore_checkpoint(ckpt_dir, state, validate=finite_state)
+        logger.info("resumed from %s at step %d", ckpt_dir, state.step)
+        _warn_config_drift(cfg, f"{run_dir}/config.json", strict=strict_resume)
+    if loader is None:
+        roidb = filter_roidb(build_dataset(cfg.data, train=True).roidb())
+        loader = DetectionLoader(
+            roidb, cfg.data, global_batch, dev, seed=cfg.train.seed,
+            quarantine_path=f"{run_dir}/quarantine.jsonl" if workdir else None)
+
+    start = state.step
+    writer = None
     if workdir:
-        save_checkpoint(checkpoint_dir(cfg, workdir), state)
+        # Rows past the restored step (a crash after a checkpoint, an
+        # earlier run's rollback) are dropped, not duplicated.
+        writer = ScalarWriter(f"{run_dir}/metrics.jsonl", resume=start > 0, resume_step=start)
+        if start == 0:
+            # The run-start config, against which every resume checks drift.
+            with open(f"{run_dir}/config.json", "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=1)
+        if latest_step(ckpt_dir) is None:
+            # A rollback or resume inside the first checkpoint interval
+            # returns here rather than aborting.
+            save_checkpoint(ckpt_dir, state)
+
+    stall = PrefetchStats()
+
+    def data_iter(from_step: int, extra_skip: int):
+        # After a rollback ``extra_skip`` batches of the schedule are
+        # dropped: the retried steps see fresh data, never the poison.
+        return _timed_pulls(loader.iter_from(from_step + extra_skip), stall)
+
+    guardian = Guardian(max_rollbacks=cfg.train.guardian_rollbacks if workdir else 0,
+                        spike_zscore=cfg.train.guardian_spike_z)
+    speedo = Speedometer(global_batch)
+    pending: list[dict] = []
+    last_drain = start
+    it = data_iter(start, 0)
+    data_skip = 0      # batches the guardian skipped ahead of the schedule
+    last_good = start  # newest boundary whose drained metrics were finite
+    i = start
+    try:
+        with PreemptionGuard() as preempt:
+            while i < steps:
+                state, metrics = step_fn(state, next(it))
+                pending.append(metrics)
+                done = i + 1
+                at_log = done % cfg.train.log_every == 0 or i == start
+                at_ckpt = bool(workdir) and done % cfg.train.checkpoint_every == 0
+                if at_log or at_ckpt or preempt.triggered:
+                    # Checkpoint boundaries drain too: a step is saved only
+                    # after its whole interval read back finite.
+                    means, per_step = host_interval_metrics(pending)
+                    pending.clear()
+                    stall_s, _ = stall.take()
+                    stall_ms = stall_s * 1000.0 / max(done - last_drain, 1)
+                    last_drain = done
+                    if guardian.observe(done, means, per_step) is not None:
+                        restore_checkpoint(ckpt_dir, state, max_step=last_good,
+                                           validate=finite_state)
+                        restored = state.step
+                        delete_steps_after(ckpt_dir, restored)
+                        data_skip += done - restored
+                        it = data_iter(restored, data_skip)
+                        writer.truncate(restored)
+                        speedo = Speedometer(global_batch)
+                        last_drain = i = restored
+                        continue
+                    last_good = done
+                    means["data_stall_ms"] = stall_ms
+                    if at_log:
+                        img_s = speedo(done, means)
+                        log(json.dumps({"step": done, **means, "img_s": img_s}))
+                        if writer:
+                            writer.write(done, {k: v for k, v in means.items()
+                                                if k != "nonfinite"})
+                    if at_ckpt:
+                        save_checkpoint(ckpt_dir, state)
+                if preempt.triggered:
+                    # Drained: persist synchronously and exit resumable.
+                    if workdir:
+                        save_checkpoint(ckpt_dir, state)
+                    raise Preempted(done, ckpt_dir if workdir else None)
+                i = done
+    finally:
+        if writer:
+            writer.close()
+    if workdir:
+        save_checkpoint(ckpt_dir, state)
     return state

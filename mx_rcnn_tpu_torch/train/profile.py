@@ -9,13 +9,17 @@ is not timed.  Runs 3 warm-up steps, times ``--steps`` steps on the host
 clock (each ends reading its loss back) and traces two more with
 ``torch.profiler``.  Prints one JSON line: wall ms per step, images per
 second, peak memory, the device-busy share of the traced window, and the
-device time by stage and by kernel name, largest first.  It needs a card.
+device time by stage and by kernel name, largest first.  With
+``--deterministic`` every op runs its deterministic algorithm
+(``torch.use_deterministic_algorithms``, ``cudnn.benchmark`` off), as in
+``chip_smoke.py``'s bitwise resume phase.  It needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
@@ -35,7 +39,13 @@ def main() -> None:
                     help="config override after model.rpn.loss_impl=compact (repeatable)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--deterministic", action="store_true",
+                    help="deterministic algorithms only, as the bitwise resume check runs")
     args = ap.parse_args()
+    if args.deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.benchmark = False
 
     card = card_line()
     overrides = ["model.rpn.loss_impl=compact", *args.set, f"train.seed={args.seed}"]
@@ -62,6 +72,7 @@ def main() -> None:
     trace = traced_breakdown(one_step)
     print(json.dumps({
         "card": card, "config": cfg.name, "overrides": overrides, "batch": global_batch,
+        "deterministic": args.deterministic,
         "wall_ms_per_step": wall * 1e3, "img_per_s": global_batch / wall,
         "peak_memory_gib": peak, **trace,
     }))

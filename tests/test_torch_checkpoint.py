@@ -158,10 +158,12 @@ def test_trainer_saves_every_k_steps_and_at_the_end(tmp_path):
     cfg = apply_overrides(get_config("tiny_synthetic"), ["train.checkpoint_every=2"])
     state = train(cfg, steps=3, device="cpu", log=lambda line: None, workdir=str(tmp_path))
     ckpt = checkpoint_dir(cfg, str(tmp_path))
-    assert ckpt == f"{tmp_path}/tiny_synthetic/ckpt" and C.all_steps(ckpt) == [2, 3]
-    assert all(jax_verify_manifest(ckpt, s) == (True, "ok") for s in (2, 3))
+    assert ckpt == f"{tmp_path}/tiny_synthetic/ckpt" and C.all_steps(ckpt) == [0, 2, 3]
+    assert all(jax_verify_manifest(ckpt, s) == (True, "ok") for s in (0, 2, 3))
     _, _, fresh, _, _ = build_all(cfg, "cpu")
     restored = C.restore_checkpoint(ckpt, fresh)
     assert same_state(restored, state)
-    with pytest.raises(NotImplementedError, match="data.dataset='coco'"):
-        train(apply_overrides(cfg, ["data.dataset=coco"]), steps=1, device="cpu")
+    # COCO is no longer refused: the trainer goes to read its annotations.
+    with pytest.raises(FileNotFoundError, match="instances_train2017.json"):
+        train(apply_overrides(cfg, ["data.dataset=coco", f"data.root={tmp_path}/coco"]),
+              steps=1, device="cpu")

@@ -124,8 +124,14 @@ def test_build_dataset_matches_jax(tmp_path):
         theirs = JD.build_dataset(
             dataclasses.replace(jax_get_config("r50_fpn_coco").data, **over), train=False)
         assert_same_roidb(ours.roidb(), theirs.roidb())
-    with pytest.raises(NotImplementedError, match="cache"):
-        TD.build_dataset(dataclasses.replace(get_config("tiny_synthetic").data, cache_dir="c"))
+    # data.cache_dir: the roidb comes through the cache, still equal to JAX's.
+    over = dict(dataset="coco", root=str(tmp_path), cache_dir=str(tmp_path / "c"))
+    cached = TD.build_dataset(dataclasses.replace(get_config("r50_fpn_coco").data, **over),
+                              train=False)
+    theirs = JD.build_dataset(dataclasses.replace(jax_get_config("r50_fpn_coco").data, **over),
+                              train=False)
+    assert_same_roidb(cached.roidb(), theirs.roidb())
+    assert_same_roidb(cached.roidb(), theirs.roidb())   # the second read hits the cache
     with pytest.raises(ValueError, match="unknown dataset"):
         TD.build_dataset(dataclasses.replace(get_config("tiny_synthetic").data, dataset="x"))
 

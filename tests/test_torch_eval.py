@@ -315,7 +315,7 @@ def test_train_then_eval_cli_on_cpu(tmp_path, capsys):
     from mx_rcnn_tpu_torch.cli import train_cli
 
     train_cli.main(["--config", "tiny_synthetic", "--steps", "2", "--device", "cpu",
-                    "--workdir", str(tmp_path), "--set", "train.checkpoint_every=1"])
+                    "--workdir", str(tmp_path), "--set", "train.checkpoint_every=1", "--no-eval"])
     capsys.readouterr()
     ckpt = tmp_path / "tiny_synthetic" / "ckpt"
     metrics = eval_cli.main(["--config", "tiny_synthetic", "--ckpt", str(ckpt), "--limit", "4",

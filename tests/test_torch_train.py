@@ -229,7 +229,8 @@ def _frozen_and_buffers(model):
 
 def test_train_on_cpu_two_steps(capsys):
     cfg = apply_overrides(get_config("tiny_synthetic"),
-                          ["model.backbone.freeze_stages=2", "model.rpn.loss_impl=compact"])
+                          ["model.backbone.freeze_stages=2", "model.rpn.loss_impl=compact",
+                           "train.log_every=1"])
     model, _, _, _, _ = build_all(cfg, device="cpu")
     frozen, buffers = _frozen_and_buffers(model)
     trainable = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
@@ -254,13 +255,15 @@ def test_train_on_cpu_two_steps(capsys):
 
 
 def test_train_cli_on_cpu(capsys, tmp_path):
-    state = train_cli.main(["--config", "tiny_synthetic", "--steps", "2", "--device", "cpu",
-                            "--seed", "4", "--set", "model.rcnn.roi_align_bwd_impl=xla",
-                            "--workdir", str(tmp_path)])
-    assert state.step == 2
+    result = train_cli.main(["--config", "tiny_synthetic", "--steps", "2", "--device", "cpu",
+                             "--seed", "4", "--set", "model.rcnn.roi_align_bwd_impl=xla",
+                             "--set", "train.log_every=1", "--no-eval",
+                             "--workdir", str(tmp_path)])
+    assert result == {"final_step": 2}
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 2 and '"step": 2' in out[-1]
-    assert sorted(os.listdir(tmp_path / "tiny_synthetic" / "ckpt")) == ["2", "manifest-2.json"]
+    assert sorted(os.listdir(tmp_path / "tiny_synthetic" / "ckpt")) == [
+        "0", "2", "manifest-0.json", "manifest-2.json"]
 
 
 def test_train_refuses_without_a_card(monkeypatch):
