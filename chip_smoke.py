@@ -78,6 +78,27 @@ when every phase passed):
    (outside, degenerate, at the level borders, on the last cells).  B1's
    launches count ``full``, ``train``, ``eval`` and ``roidb``, B2's
    ``train`` and ``roidb``.
+7c. The single-level C4 family (:func:`c4_phase`), ``vgg16_voc07`` and
+   ``r101_coco`` at full width, random weights from the seed:
+   (a) serve: an engine with ``serve.fused_middle=on`` at batch 2 (the
+   ``full`` program: B1 on one level, B3 at L = 1, k = 6000) and one with
+   ``rpn.nms_impl=pallas`` (the ``proposals`` program: B4 on one level,
+   n = 6000), counts set to 0 before each path and read after, every
+   kernel launched, responses finite and inside their images, the full
+   path returning detections (classes 1-4 favoured), latency printed;
+   one ``r101_fpn_coco`` request rides with the full path.  (b) 3 train
+   steps through ``train/loop.py::train`` on the synthetic set at the
+   preset's canvas and batch (608x1024 batch 1; 800x1344 batch 2),
+   compact RPN loss, mixed policy, as phase 5 checks them (``layer4`` of
+   r101_coco is trained by weight decay alone and must move too).  (c)
+   ``run_eval`` on 16 synthetic images, ``nms_mode=fused``: metrics
+   finite, B1 launched, the first batch identical through the kernels and
+   the plain path in float32; img/s printed.  (d) B1 on one level at
+   C = 1024 and 512 (bf16 within one ulp, f32 bitwise) on (a)'s rois, B2
+   on (b)'s last step, B3 and B4 at 6000 candidates (bitwise), each timed
+   as in phase 3: the ``kernels`` line's ``@c4`` entries.  Phase c4's
+   launches count in B1-B4's entries as well.  The rehearsal cuts the
+   canvas to 192x256 and the proposals to hundreds.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -611,7 +632,7 @@ def serve_path(name, engine, images, counters, timeout) -> dict:
     log(f"[serve:{name}] {len(images)} requests in {wall:.3f} s = {len(images) / wall:.2f} img/s; "
         f"latency ms per request {[round(x, 1) for x in lat]}; outputs per request {counts}; "
         f"launches {launches}")
-    return {"launches": launches, "counts": counts}
+    return {"launches": launches, "counts": counts, "latency_ms": [round(x, 1) for x in lat]}
 
 
 def serving_phase(dev, rehearsal: bool, seed: int) -> dict:
@@ -721,9 +742,30 @@ def captured_backward(store: list, keep):
 
 def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
     """Phase 5: r50_fpn_coco trained at full width for ``steps`` steps
-    through ``train/loop.py::train``; the launch counts are set to 0 just
-    before and read after every step."""
+    through ``train/loop.py::train``."""
     from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+
+    # r50_fpn_coco freezes the stem and stage 1; the tiny rehearsal is
+    # given the same freeze so that it has frozen parameters to check.
+    overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic",
+                 "train.log_every=1"]
+    if rehearsal:
+        overrides.append("model.backbone.freeze_stages=2")
+    cfg = apply_overrides(get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco"),
+                          overrides)
+    # At the rehearsal's 128x128 no sampled anchor or roi reaches P4 or P5,
+    # so the biases of those two FPN outputs get no gradient.
+    return train_run(dev, rehearsal, cfg, "train", steps, unmoved=2 if rehearsal else 0)
+
+
+def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 0) -> dict:
+    """``cfg`` trained for ``steps`` steps through ``train/loop.py::train``
+    with random weights from ``train.seed``; the launch counts are set to
+    0 just before and read after every step.  Every loss finite, B1 and B2
+    launched in every step (on the card), every trainable parameter but
+    ``unmoved`` moved, frozen parameters and FrozenBN buffers bitwise
+    unchanged.  Returns the launches, the last step's B2 inputs, the state
+    and ``cfg``."""
     from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
         multilevel_roi_align_bwd_cuda,
         multilevel_roi_align_cuda,
@@ -733,15 +775,7 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
 
     counters = {"roi_align": multilevel_roi_align_cuda,
                 "roi_align_bwd": multilevel_roi_align_bwd_cuda}
-    # r50_fpn_coco freezes the stem and stage 1; the tiny rehearsal is
-    # given the same freeze so that it has frozen parameters to check.
-    overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic",
-                 "train.log_every=1"]
-    if rehearsal:
-        overrides.append("model.backbone.freeze_stages=2")
-    cfg = apply_overrides(get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco"),
-                          overrides)
-    variables = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+    variables = init_variables(cfg.model, torch.Generator().manual_seed(cfg.train.seed))
     steps_seen, launches = [], {k: 0 for k in counters}
 
     def on_step(line: str) -> None:
@@ -751,7 +785,7 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
             launches[k] += fn.launches
             fn.launches = 0
         steps_seen.append((time.perf_counter(), m, per_step))
-        log(f"[train] {line} launches {per_step}")
+        log(f"[{label}] {line} launches {per_step}")
 
     # The backward's inputs of the last step, for timing B2 on a real
     # step's rois.
@@ -768,12 +802,12 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
     bad = [i for i, (_, m, _) in enumerate(steps_seen)
            if m["nonfinite"] != 0.0 or not finite_line(m)]
     if len(steps_seen) != steps or bad:
-        raise AssertionError(f"train: {len(steps_seen)} of {steps} steps, non-finite at {bad}")
+        raise AssertionError(f"{label}: {len(steps_seen)} of {steps} steps, non-finite at {bad}")
     if not rehearsal:
         missing = [(i, k) for i, (_, _, per) in enumerate(steps_seen) for k, v in per.items()
                    if v < 1]
         if missing:
-            raise AssertionError(f"train: kernels not launched at (step, kernel) {missing}")
+            raise AssertionError(f"{label}: kernels not launched at (step, kernel) {missing}")
     moved, frozen_same, n_frozen = 0, True, 0
     for name, p in state.model.named_parameters():
         start = variables[name].to(p.device)
@@ -785,27 +819,26 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
     buffers_same = all(torch.equal(v, variables[k].to(v.device))
                        for k, v in state.model.named_buffers())
     n_train = sum(p.requires_grad for p in state.model.parameters())
-    # At the rehearsal's 128x128 no sampled anchor or roi reaches P4 or P5,
-    # so the biases of those two FPN outputs get no gradient.
-    need = n_train - 2 if rehearsal else n_train
-    if not (frozen_same and buffers_same and n_frozen > 0 and moved == need):
+    if not (frozen_same and buffers_same and n_frozen > 0 and moved == n_train - unmoved):
         raise AssertionError(
-            f"train: frozen unchanged={frozen_same} ({n_frozen}), buffers unchanged="
+            f"{label}: frozen unchanged={frozen_same} ({n_frozen}), buffers unchanged="
             f"{buffers_same}, trainable moved {moved} of {n_train}")
     times = [t for t, _, _ in steps_seen]
     wall = (times[-1] - times[0]) / (len(times) - 1)
     stall = float(np.mean([m["data_stall_ms"] for _, m, _ in steps_seen[1:]]))
-    log(f"[train] r50_fpn_coco{' (rehearsal: tiny)' if rehearsal else ''} batch "
-        f"{cfg.train.per_device_batch}, {steps} steps in {time.perf_counter() - t0:.2f} s "
-        f"(build and the synthetic set's rendering included); after the first: {wall:.4f} s "
+    (h, w) = cfg.data.image_size
+    log(f"[{label}] {cfg.name}{' (rehearsal: cut)' if rehearsal else ''} batch "
+        f"{cfg.train.per_device_batch}, {h}x{w}, {steps} steps in {time.perf_counter() - t0:.2f} "
+        f"s (build and the synthetic set's rendering included); after the first: {wall:.4f} s "
         f"a step with the batch assembly, of which data_stall_ms {stall:.2f} (time in "
         f"next(loader)); peak memory {peak:.2f} GiB; "
         f"loss {steps_seen[0][1]['loss']:.4f} -> {steps_seen[-1][1]['loss']:.4f}; "
         f"frozen {n_frozen} parameters and all buffers unchanged, {moved} of {n_train} "
         f"trainable moved; launches {launches}")
     if not step_args:
-        raise AssertionError("train: the ROIAlign backward was never called")
-    return {"launches": launches, "step_args": step_args[0], "state": state, "cfg": cfg}
+        raise AssertionError(f"{label}: the ROIAlign backward was never called")
+    return {"launches": launches, "step_args": step_args[0], "state": state, "cfg": cfg,
+            "s_per_step": wall, "data_stall_ms": stall, "peak_gib": peak}
 
 
 def torchvision_resnet50(seed: int) -> dict:
@@ -1210,6 +1243,36 @@ def eval_breakdown(dev, rehearsal: bool, cfg, model, first) -> dict:
     return {"ms": ms, **trace}
 
 
+def first_batch_reference(dev, cfg, state_dict, roidb, batch: int, label: str):
+    """The first eval batch of ``roidb`` through the kernels and through the
+    plain versions (``roi_align_impl=xla``), both in float32 from
+    ``state_dict``: the detections must be identical (B1 is the one kernel
+    of this path whatever the mode, bitwise in float32), and there must be
+    some.  Returns the batch."""
+    from mx_rcnn_tpu_torch.config import apply_overrides
+    from mx_rcnn_tpu_torch.data.loader import eval_batches
+    from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
+    from mx_rcnn_tpu_torch.parallel.step import make_eval_step
+
+    first, _ = next(eval_batches(roidb, cfg.data, batch, dev))
+    dets = {}
+    for name, over in (("kernels", []), ("plain", ["model.rcnn.roi_align_impl=xla"])):
+        fcfg = apply_overrides(cfg, ["model.precision.policy=float32", *over])
+        model = TwoStageDetector(fcfg.model, device=dev)
+        model.load_state_dict(state_dict)
+        step = make_eval_step((fcfg.data.pixel_mean, fcfg.data.pixel_std))
+        dets[name] = [x.cpu() for x in step(model, first)]
+        del model
+    same = all(torch.equal(a, b) for a, b in zip(dets["kernels"], dets["plain"]))
+    log(f"[{label}:reference] first batch, float32: {int(dets['kernels'][3].sum())} detections "
+        f"through the kernels, {int(dets['plain'][3].sum())} through the plain path, "
+        f"identical={same}")
+    if not same or not dets["kernels"][3].any():
+        raise AssertionError(f"{label}: the kernel path and the plain path disagree, or return "
+                             "no detections")
+    return first
+
+
 def eval_phase(dev, rehearsal: bool, trained: dict) -> dict:
     """Phase 6: the trained r50_fpn_coco state saved with
     ``train/checkpoint.py``, its manifest verified, restored into a fresh
@@ -1235,8 +1298,6 @@ def eval_phase(dev, rehearsal: bool, trained: dict) -> dict:
     from mx_rcnn_tpu_torch.cli.eval_cli import run_eval
     from mx_rcnn_tpu_torch.config import apply_overrides
     from mx_rcnn_tpu_torch.data.datasets import build_dataset
-    from mx_rcnn_tpu_torch.data.loader import eval_batches
-    from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
     from mx_rcnn_tpu_torch.evalutil.detections import load_detections
     from mx_rcnn_tpu_torch.evalutil.pred_eval import evaluate_detections
     from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
@@ -1323,23 +1384,8 @@ def eval_phase(dev, rehearsal: bool, trained: dict) -> dict:
             out[mode] = {"img_s": n / wall, "img_s_steady": steady, "img_s_per_batch": per_batch,
                          "metrics": metrics}
 
-        # The first batch through the kernels and through the plain
-        # versions, float32: the detections are identical.
-        first, _ = next(eval_batches(roidb, cfg.data, batch, dev))
-        dets = {}
-        for name, over in (("kernels", []), ("plain", ["model.rcnn.roi_align_impl=xla"])):
-            fcfg = apply_overrides(cfg, ["model.precision.policy=float32", *over])
-            model = TwoStageDetector(fcfg.model, device=dev)
-            model.load_state_dict(restored.model.state_dict())
-            step = make_eval_step((fcfg.data.pixel_mean, fcfg.data.pixel_std))
-            dets[name] = [x.cpu() for x in step(model, first)]
-        same = all(torch.equal(a, b) for a, b in zip(dets["kernels"], dets["plain"]))
-        log(f"[eval:reference] first batch, float32: {int(dets['kernels'][3].sum())} detections "
-            f"through the kernels, {int(dets['plain'][3].sum())} through the plain path, "
-            f"identical={same}")
-        if not same or not dets["kernels"][3].any():
-            raise AssertionError("eval: the kernel path and the plain path disagree, or return "
-                                 "no detections")
+        first = first_batch_reference(dev, cfg, restored.model.state_dict(), roidb, batch,
+                                      "eval")
 
         restored.model.eval()
         out["trace"] = eval_breakdown(dev, rehearsal, cfg, restored.model, first)
@@ -1406,20 +1452,330 @@ def train_reference_phase(dev, seed: int) -> None:
         raise AssertionError("the kernel train step and the plain train step disagree")
 
 
+# Phase c4: the single-level C4 family at full width; the first is the
+# headline of the kernels line's ``@c4`` entries.
+C4_CONFIGS = ("r101_coco", "vgg16_voc07")
+
+
+def c4_overrides(rehearsal: bool) -> list[str]:
+    """The rehearsal's cuts of the C4 presets (a 192x256 canvas, proposals
+    in the hundreds, a narrow box head, eval batch 2); none on the card."""
+    if not rehearsal:
+        return []
+    return ["data.image_size=192,256", "data.short_side=192", "data.max_side=256",
+            "model.rpn.train_pre_nms_top_n=300", "model.rpn.train_post_nms_top_n=100",
+            "model.rpn.test_pre_nms_top_n=300", "model.rpn.test_post_nms_top_n=50",
+            "model.rcnn.roi_batch_size=32", "model.rcnn.hidden_dim=64",
+            "model.test.per_device_batch=2"]
+
+
+@contextlib.contextmanager
+def captured_pool(store: list):
+    """Put the one-level pyramid and rois of the last single-level ROIAlign
+    call of ``detection/graph.py`` in ``store[0]``, and whether B1 read
+    that map eight channels a thread (contiguous, C a multiple of 8,
+    16-byte aligned) in ``store[1]`` (``forward_inference`` looks
+    ``_pool_rois_impl`` up at each call)."""
+    from mx_rcnn_tpu_torch.detection import graph
+
+    pool = graph._pool_rois_impl
+
+    def capture(cfg, feats, rois, pooled_size, roi_level_set):
+        levels = {l: f for l, f in feats.items() if l in roi_level_set}
+        if len(levels) == 1:
+            (f,) = levels.values()
+            vec = f.is_contiguous() and f.shape[-1] % 8 == 0 and f.data_ptr() % 16 == 0
+            store[:] = [({l: f.detach().clone() for l, f in levels.items()},
+                         rois.detach().clone()), vec]
+        return pool(cfg, feats, rois, pooled_size, roi_level_set)
+
+    graph._pool_rois_impl = capture
+    try:
+        yield store
+    finally:
+        graph._pool_rois_impl = pool
+
+
+def c4_serve(dev, rehearsal: bool, seed: int, name: str, counters: dict) -> dict:
+    """Phase c4 (a): ``name`` at full width through the engine, random
+    weights from the seed, classes 1-4 favoured: the ``full`` program with
+    ``serve.fused_middle=on`` at batch 2 (B1 on one level, B3 at L = 1),
+    then the ``proposals`` program with ``rpn.nms_impl=pallas`` at batch 1
+    (B4 on one level); each path with the counts set to 0 just before and
+    read just after, and every kernel of it launched (on the card)."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.serve.engine import build_engine
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    base = apply_overrides(get_config(name), c4_overrides(rehearsal))
+    variables = init_variables(base.model, torch.Generator().manual_seed(seed))
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    rng = np.random.RandomState(seed)
+    if rehearsal:
+        sizes = [(96, 128), (128, 100), (80, 120)]
+    elif name == "vgg16_voc07":      # VOC's own sizes
+        sizes = [(375, 500), (500, 375), (333, 500), (500, 333), (281, 500)]
+    else:
+        sizes = [(480, 640), (800, 1333), (600, 1000), (427, 640), (640, 480)]
+    images = [rng.uniform(0, 255, (hh, ww, 3)).astype(np.float32) for hh, ww in sizes]
+    out, pooled = {}, []
+    full_cfg = apply_overrides(base, ["serve.fused_middle=on", "serve.batch_size=2"])
+    t0 = time.perf_counter()
+    with build_engine(full_cfg, variables, device=dev) as engine, captured_pool(pooled):
+        log(f"[c4:{name}:full] warm-up {time.perf_counter() - t0:.1f} s "
+            f"(programs {engine.runner.levels()}, bucket {engine.runner.buckets})")
+        out["full"] = serve_path(f"c4:{name}:full", engine, images, counters, 600.0)
+    prop_cfg = apply_overrides(base, ["model.rpn.nms_impl=pallas"])
+    with build_engine(prop_cfg, variables, batch_size=1, device=dev, mode="proposals") as engine:
+        out["proposals"] = serve_path(f"c4:{name}:proposals", engine, images[:3], counters,
+                                      600.0)
+    if sum(out["full"]["counts"]) == 0:
+        raise AssertionError(f"c4 {name}: the full path returned no detections")
+    log(f"[c4:{name}:full] B1 reads the {tuple(pooled[0][0][4].shape)} map eight channels "
+        f"a thread: {pooled[1]}")
+    need = {"full": ("roi_align", "fused_middle"), "proposals": ("nms",)}
+    missing = [(path, k) for path, ks in need.items() for k in ks
+               if out[path]["launches"][k] < 1]
+    if missing and not rehearsal:
+        raise AssertionError(f"c4 {name}: kernels not launched on (path, kernel) {missing}")
+    if not pooled[1]:
+        raise AssertionError(f"c4 {name}: B1 read the C4 map one channel a thread")
+    out["pool"] = pooled[0]
+    return out
+
+
+def c4_fpn_request(dev, rehearsal: bool, seed: int, counters: dict) -> dict:
+    """Phase c4 (a): one request to ``r101_fpn_coco`` at full width
+    (``serve.fused_middle=on``: B1 and B3), counted with the full path."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.serve.engine import build_engine
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    cfg = apply_overrides(get_config("r101_fpn_coco"),
+                          [*c4_overrides(rehearsal), "serve.fused_middle=on"])
+    variables = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    hw = (96, 128) if rehearsal else (800, 1333)
+    image = np.random.RandomState(seed).uniform(0, 255, (*hw, 3)).astype(np.float32)
+    with build_engine(cfg, variables, device=dev) as engine:
+        out = serve_path("c4:r101_fpn_coco:full", engine, [image], counters, 600.0)
+    if not rehearsal and min(out["launches"][k] for k in ("roi_align", "fused_middle")) < 1:
+        raise AssertionError(f"c4 r101_fpn_coco: B1 or B3 not launched ({out['launches']})")
+    return out
+
+
+def c4_eval(dev, rehearsal: bool, trained: dict, counters: dict) -> dict:
+    """Phase c4 (c): ``run_eval`` on 16 synthetic images at
+    ``test.per_device_batch``, ``nms_mode=fused``, with the trained state
+    (classes 1-4 favoured, so that there are detections), the counts set
+    to 0 just before and read just after (B1 must launch); metrics
+    finite; the first batch in float32 through the kernels and the plain
+    path identical."""
+    from mx_rcnn_tpu_torch.cli.eval_cli import run_eval
+    from mx_rcnn_tpu_torch.config import apply_overrides
+    from mx_rcnn_tpu_torch.data.datasets import build_dataset
+
+    cfg = apply_overrides(trained["cfg"], ["model.test.nms_mode=fused"])
+    state = trained["state"]
+    # Three steps leave the trained head sure of the background, so classes
+    # 1-4 take the background's row of the classifier and one more on its
+    # bias: each scores about e / (1 + 4e) = 0.23 on every roi.
+    with torch.no_grad():
+        head = state.model.box_head.cls_score
+        head.weight[1:5] = head.weight[0]
+        head.bias[1:5] = head.bias[0] + 1.0
+    n, batch = (4 if rehearsal else 16), cfg.model.test.per_device_batch
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = run_eval(cfg, state=state, limit=n, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"[c4:{cfg.name}:eval] {n} synthetic images, batch {batch}, fused: {n / wall:.2f} img/s "
+        f"end to end ({wall:.2f} s, model build and rendering included); launches {launches}; "
+        f"metrics {json.dumps(metrics, sort_keys=True)}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"c4 {cfg.name}: non-finite eval metrics")
+    if not rehearsal and launches["roi_align"] < 1:
+        raise AssertionError(f"c4 {cfg.name}: B1 never launched in the eval")
+    roidb = build_dataset(cfg.data, train=False).roidb()[:n]
+    first_batch_reference(dev, cfg, state.model.state_dict(), roidb, batch, f"c4:{cfg.name}:eval")
+    return {"launches": launches, "img_s": n / wall, "metrics": metrics}
+
+
+def c4_kernels(dev, rehearsal: bool, seed: int, runs: dict, chunk_us: dict) -> dict:
+    """Phase c4 (d): each kernel at the C4 shapes against its plain
+    version, timed as in phase 3: B1 on one level on the rois phase (a)
+    pooled, bf16 (the path's dtype, within one bf16 ulp) and f32
+    (bitwise), for r101_coco (C = 1024) and vgg16_voc07 (C = 512); B2 on
+    phase (b)'s last-step inputs; B3 at L = 1 and B4 on one level at the
+    serving pre-NMS top-n (6000), both bitwise.  ``chunk_us``: phase 3's
+    sweep chunk step of B3 and B4, for their sequential floor."""
+    from mx_rcnn_tpu_torch.detection.graph import level_anchors
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels, fused_middle_levels_plain
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_keep_sorted_cuda, nms_keep_sorted_plain
+    from mx_rcnn_tpu_torch.ops.proposals import _pre_nms_candidates, _topk_candidates
+
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+
+    def entry(cases: dict) -> dict:
+        """One kernels-line entry from ``cases`` {case: result}: the first
+        case is the headline, the others' numbers are suffixed extras, and
+        it matches when every case does."""
+        first, *rest = cases
+        out = dict(cases[first], match=all(r["match"] for r in cases.values()), extra={})
+        for case in rest:
+            r = cases[case]
+            out["extra"].update({f"{k}_{case}": r[k] for k in
+                                 ("ms", "kernel_ms", "plain_ms", "max_abs_err")})
+            out["extra"][f"bound_ms_{case}"] = r["bound"][0]
+        return out
+
+    fwd, bwd = {}, {}
+    for name in runs:
+        pyr, rois = runs[name]["serve"]["pool"]
+        for dt, case in ((torch.bfloat16, name), (torch.float32, f"f32_{name}")):
+            res = hold_fwd({l: f.to(dt) for l, f in pyr.items()}, rois, 7, 2, clock, iters,
+                           plain_iters)
+            if dt == torch.float32:    # bitwise in float32
+                res["match"] = res["match"] and res["max_abs_err"] == 0.0
+            fwd[case] = res
+            log(f"[kernel:roi_align@c4:{case}] {res['shape']} map {tuple(pyr[4].shape[1:3])}: "
+                f"match={res['match']} max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
+                f"kernel_ms={res['kernel_ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+                f"bound_ms={res['bound'][0]:.4f}")
+        args = runs[name]["train"]["step_args"]
+        bwd[name] = res = hold_bwd(args, clock, iters, plain_iters)
+        log(f"[kernel:roi_align_bwd@c4:{name}] {res['shape']} map {args[0][4]}: "
+            f"match={res['match']} max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
+            f"kernel_ms={res['kernel_ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"bound_ms={res['bound'][0]:.4f}")
+    out = {"roi_align@c4": entry(fwd), "roi_align_bwd@c4": entry(bwd)}
+
+    # B3 and B4 at the serving pre-NMS top-n of r101_coco's canvas: its C4
+    # anchor grid, RPN-like bf16 scores (full of ties) and small deltas.
+    cfg = runs["r101_coco"]["train"]["cfg"]
+    rpn = cfg.model.rpn
+    (h, w), b = cfg.data.image_size, 2
+    anchors = level_anchors(cfg.model, {4: torch.empty((1, h >> 4, w >> 4, 1), device=dev)})[4]
+    g = torch.Generator().manual_seed(seed + 11)
+    scores = torch.sigmoid(0.5 * torch.randn((b, len(anchors)), generator=g)) \
+        .to(torch.bfloat16).to(dev)
+    deltas = (0.2 * torch.randn((b, len(anchors), 4), generator=g)).to(torch.bfloat16).to(dev)
+    image_hw = torch.tensor([[h, w], [h - 176, w - 320]], dtype=torch.float32, device=dev)
+    pre, thresh = rpn.test_pre_nms_top_n, rpn.nms_threshold
+    ts, td, ta = _topk_candidates(scores, deltas, anchors, pre)
+    margs = (ta[:, None].float(), td[:, None].float(), ts[:, None].float(), image_hw,
+             rpn.min_size, thresh)
+    got, want = fused_middle_levels(*margs), fused_middle_levels_plain(*margs)
+    same = all(torch.equal(x, y) for x, y in zip(got, want))
+    k = margs[2].shape[-1]
+    flops = 40 * margs[2].numel() + IOU_FLOPS * greedy_pairs(got[2], torch.isfinite(got[1]))
+    out["fused_middle@c4"] = dict(
+        match=same, max_abs_err=float((got[0] - want[0]).abs().max()),
+        ms=clock.ms(lambda: fused_middle_levels(*margs), iters),
+        kernel_ms=clock.kernel_ms(lambda: fused_middle_levels(*margs)),
+        plain_ms=clock.ms(lambda: fused_middle_levels_plain(*margs), plain_iters),
+        bound=bound(nbytes(*margs[:4], *got), flops),
+        extra=dict(chunk_steps=-(-k // 64),
+                   sequential_floor_ms=1e-3 * chunk_us["fused_middle"] * -(-k // 64)),
+        shape=f"B={b} L=1 k={k} (two launches a call)")
+    dense = _pre_nms_candidates(scores[:1], deltas[:1], anchors, image_hw[:1], pre, rpn.min_size)
+    order = torch.argsort(-dense[1], dim=-1, stable=True)
+    nargs = (torch.gather(dense[0], 1, order[..., None].expand(*order.shape, 4)).contiguous(),
+             torch.gather(torch.isfinite(dense[1]), 1, order).contiguous(), thresh)
+    k1, k2 = nms_keep_sorted_cuda(*nargs), nms_keep_sorted_plain(*nargs)
+    out["nms@c4"] = dict(
+        match=torch.equal(k1, k2), max_abs_err=float(not torch.equal(k1, k2)),
+        ms=clock.ms(lambda: nms_keep_sorted_cuda(*nargs), iters),
+        kernel_ms=clock.kernel_ms(lambda: nms_keep_sorted_cuda(*nargs)),
+        plain_ms=clock.ms(lambda: nms_keep_sorted_plain(*nargs), plain_iters),
+        bound=bound(nbytes(nargs[0], nargs[1], k1), IOU_FLOPS * greedy_pairs(k1, nargs[1])),
+        extra=dict(chunk_steps=-(-nargs[0].shape[-2] // 64),
+                   sequential_floor_ms=1e-3 * chunk_us["nms"] * -(-nargs[0].shape[-2] // 64)),
+        shape=f"B=1 L=1 n={nargs[0].shape[-2]} (one launch)")
+    for key in ("fused_middle@c4", "nms@c4"):
+        r = out[key]
+        log(f"[kernel:{key}] {r['shape']}: match={r['match']} ms={r['ms']:.4f} "
+            f"kernel_ms={r['kernel_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}); {r['extra']['chunk_steps']} "
+            f"chunk steps, sequential floor {r['extra']['sequential_floor_ms']:.4f} ms")
+    return out
+
+
+def c4_phase(dev, rehearsal: bool, seed: int, chunk_us: dict) -> dict:
+    """Phase c4: vgg16_voc07 and r101_coco at full width, random weights
+    from the seed: (a) serve (:func:`c4_serve`, and one r101_fpn_coco
+    request), (b) 3 train steps through ``train/loop.py::train`` on the
+    synthetic set at the preset's canvas and batch (compact RPN loss, the
+    mixed policy), (c) evaluate (:func:`c4_eval`), then (d) each kernel at
+    these shapes (:func:`c4_kernels`).  Returns the paths' launches and the
+    kernels' entries."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
+    )
+
+    counters = {"roi_align": multilevel_roi_align_cuda, "fused_middle": fused_middle_levels,
+                "nms": nms_mask_cuda, "roi_align_bwd": multilevel_roi_align_bwd_cuda}
+    paths = {p: {"launches": {k: 0 for k in counters}}
+             for p in ("c4_full", "c4_proposals", "c4_train", "c4_eval")}
+
+    def count(path, launches):
+        for k, v in launches.items():
+            paths[path]["launches"][k] = paths[path]["launches"].get(k, 0) + v
+
+    runs = {}
+    for name in C4_CONFIGS:
+        serve = c4_serve(dev, rehearsal, seed, name, counters)
+        count("c4_full", serve["full"]["launches"])
+        count("c4_proposals", serve["proposals"]["launches"])
+        cfg = apply_overrides(get_config(name), [
+            "model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic",
+            "train.log_every=1", *c4_overrides(rehearsal)])
+        trained = train_run(dev, rehearsal, cfg, f"c4:{name}:train", 3)
+        count("c4_train", trained["launches"])
+        evaluated = c4_eval(dev, rehearsal, trained, counters)
+        count("c4_eval", evaluated["launches"])
+        log(f"[c4:{name}] serving latency ms per request "
+            f"{serve['full']['latency_ms']} (full), {serve['proposals']['latency_ms']} "
+            f"(proposals); launches full {serve['full']['launches']}, proposals "
+            f"{serve['proposals']['launches']}; train {trained['s_per_step']:.4f} s a step after "
+            f"the first, data_stall_ms {trained['data_stall_ms']:.2f}, peak memory "
+            f"{trained['peak_gib']:.2f} GiB; eval {evaluated['img_s']:.2f} img/s")
+        trained["state"] = None
+        runs[name] = {"serve": serve, "train": trained}
+    count("c4_full", c4_fpn_request(dev, rehearsal, seed, counters)["launches"])
+    kernels = c4_kernels(dev, rehearsal, seed, runs, chunk_us)
+    return {"paths": paths, "kernels": kernels}
+
+
 # The kernels of the main paths: source, the TPU kernel it replaces, and
 # the paths that launch it.  (``roi_align_f32`` and ``roi_align_bwd_f32``
 # are checked as well, but the paths run bf16, so they are no entries of
 # their own.)
 KERNELS = {
-    "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu",
-                  "mx_rcnn_tpu/ops/pallas/roi_align.py:393", ("full", "train", "eval", "roidb")),
+    "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
+                  ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval")),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
-                      "mx_rcnn_tpu/ops/pallas/roi_align.py:623", ("train", "roidb")),
+                      "mx_rcnn_tpu/ops/pallas/roi_align.py:623", ("train", "roidb", "c4_train")),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
-                     "mx_rcnn_tpu/ops/pallas/middle.py:145", ("full",)),
+                     "mx_rcnn_tpu/ops/pallas/middle.py:145", ("full", "c4_full")),
     "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75",
-            ("proposals",)),
+            ("proposals", "c4_proposals")),
 }
+# Phase c4's entries: the same kernels at the single-level C4 shapes,
+# counted over phase c4's paths alone.
+KERNELS.update({
+    "roi_align@c4": (*KERNELS["roi_align"][:2], ("c4_full", "c4_train", "c4_eval")),
+    "roi_align_bwd@c4": (*KERNELS["roi_align_bwd"][:2], ("c4_train",)),
+    "fused_middle@c4": (*KERNELS["fused_middle"][:2], ("c4_full",)),
+    "nms@c4": (*KERNELS["nms"][:2], ("c4_proposals",)),
+})
 
 
 PKG = "mx_rcnn_tpu_torch"
@@ -1578,17 +1934,21 @@ def main() -> int:
     steps = {"step": paths["train"]["step_args"], "step_portrait": paths["roidb"]["step_args"]}
     backward_cases_phase(dev, args.cpu_rehearsal, args.seed, steps, kernels)
     forward_cases_phase(dev, args.cpu_rehearsal, args.seed, steps, kernels)
+    c4 = c4_phase(dev, args.cpu_rehearsal, args.seed,
+                  {k: kernels[k]["extra"]["chunk_step_us"] for k in ("fused_middle", "nms")})
+    paths.update(c4["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)
     parent = parent_phase(dev, args.parent, kernels) if args.parent else {}
+    kernels.update(c4["kernels"])
 
     line = []
     for name, (source, replaces, on) in KERNELS.items():
         k = kernels[name]
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(paths[p]["launches"][name] for p in on),
+            "launches": sum(paths[p]["launches"][name.split("@")[0]] for p in on),
             "match": k["match"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1],

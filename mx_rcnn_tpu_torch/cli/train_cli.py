@@ -49,7 +49,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "workdir's recorded config.json")
     p.add_argument("--no-eval", action="store_true", help="skip the final evaluation pass")
     p.add_argument("--pretrained", default=None, metavar="PTH",
-                   help="torchvision-layout ResNet .pth to seed the backbone")
+                   help="torchvision-layout ResNet or VGG-16 .pth to seed the backbone")
     return p.parse_args(argv)
 
 

@@ -35,9 +35,10 @@ class AnchorConfig:
 
 @dataclass(frozen=True)
 class BackboneConfig:
-    name: str = "resnet50"  # resnet50 | resnet101
+    name: str = "resnet50"  # resnet50 | resnet101 | vgg16
     # Stages to freeze, counted like the reference's fixed_param_prefix
-    # (conv1 + res2 frozen for ResNet): train/loop.py::FREEZE_PREFIXES.
+    # (conv1 + res2 frozen for ResNet, groups 1-2 for VGG):
+    # train/loop.py::FREEZE_PREFIXES.
     freeze_stages: int = 2
     norm: str = "frozen_bn"
     # Compute dtype for conv/matmul (params stay float32).
@@ -218,6 +219,20 @@ class Config:
     workdir: str = "runs"
 
 
+def _c4_model(num_classes: int, backbone: str) -> ModelConfig:
+    """Classic C4 recipe: single-level stride-16 features, anchor scales
+    (8, 16, 32), ROIAlign on C4, a 2-fc box head."""
+    return ModelConfig(
+        num_classes=num_classes,
+        backbone=BackboneConfig(name=backbone),
+        fpn=FPNConfig(enabled=False),
+        anchors=AnchorConfig(scales=(8.0, 16.0, 32.0)),
+        rpn=RPNConfig(channels=512, train_pre_nms_top_n=6000, train_post_nms_top_n=2000,
+                      test_pre_nms_top_n=6000, test_post_nms_top_n=300),
+        rcnn=RCNNConfig(roi_batch_size=128),
+    )
+
+
 def _fpn_model(num_classes: int, backbone: str) -> ModelConfig:
     return ModelConfig(
         num_classes=num_classes,
@@ -227,9 +242,22 @@ def _fpn_model(num_classes: int, backbone: str) -> ModelConfig:
     )
 
 
-def _r50_fpn_coco() -> Config:
-    return Config(name="r50_fpn_coco", model=_fpn_model(81, "resnet50"),
-                  train=TrainConfig(per_device_batch=2))
+def _vgg16_voc07() -> Config:
+    m = _c4_model(21, "vgg16")
+    return Config(
+        name="vgg16_voc07",
+        model=dataclasses.replace(m, rcnn=RCNNConfig(roi_batch_size=128, hidden_dim=4096),
+                                  test=dataclasses.replace(m.test, nms_threshold=0.3)),
+        data=DataConfig(dataset="voc", train_split="2007_trainval", val_split="2007_test",
+                        image_size=(608, 1024), short_side=600, max_side=1000,
+                        aspect_grouping=True),
+        train=TrainConfig(schedule=ScheduleConfig(base_lr=0.001, decay_steps=(50000,),
+                                                  total_steps=70000, warmup_steps=100)),
+    )
+
+
+def _coco(name: str, model: ModelConfig) -> Config:
+    return Config(name=name, model=model, train=TrainConfig(per_device_batch=2))
 
 
 def _tiny_synthetic() -> Config:
@@ -256,7 +284,14 @@ def _tiny_synthetic() -> Config:
     )
 
 
-_PRESETS = {"r50_fpn_coco": _r50_fpn_coco, "tiny_synthetic": _tiny_synthetic}
+_PRESETS = {
+    "vgg16_voc07": _vgg16_voc07,
+    "r50_coco": lambda: _coco("r50_coco", _c4_model(81, "resnet50")),
+    "r101_coco": lambda: _coco("r101_coco", _c4_model(81, "resnet101")),
+    "r101_fpn_coco": lambda: _coco("r101_fpn_coco", _fpn_model(81, "resnet101")),
+    "r50_fpn_coco": lambda: _coco("r50_fpn_coco", _fpn_model(81, "resnet50")),
+    "tiny_synthetic": _tiny_synthetic,
+}
 
 
 def available_configs() -> list[str]:

@@ -7,7 +7,9 @@ per-image function, the batch axis is written out.  The model is a
 weights; call the inference functions under ``torch.inference_mode()``.
 :func:`forward_train` returns the differentiable total loss; its random
 draws come in as :class:`Draws` or a ``torch.Generator``.  The mask
-branch and Fast R-CNN mode (external proposals) are not ported.
+branch and Fast R-CNN mode (external proposals) are not ported.  One
+feature level (the C4 recipe) takes the single-level proposals and
+ROIAlign; several, the FPN ones.
 
 Shape conventions: B = batch, G = max gt boxes, A = anchors over levels,
 R = proposals per image, S = pooled size, C = classes including
@@ -34,8 +36,8 @@ from mx_rcnn_tpu_torch.geometry import (
 from mx_rcnn_tpu_torch.geometry.losses import masked_softmax_cross_entropy, weighted_smooth_l1
 from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_fast
 from mx_rcnn_tpu_torch.ops.nms import batched_nms, nms_indices
-from mx_rcnn_tpu_torch.ops.proposals import Proposals, generate_fpn_proposals
-from mx_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align
+from mx_rcnn_tpu_torch.ops.proposals import Proposals, generate_fpn_proposals, generate_proposals
+from mx_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align, roi_align
 from mx_rcnn_tpu_torch.ops.sampling import AnchorTargets, RoiSamples, assign_anchors, sample_rois
 from mx_rcnn_tpu_torch.ops.topk import top_k
 
@@ -97,16 +99,14 @@ def _propose_one(cfg: ModelConfig, train: bool = False):
         raise ValueError(f"rpn.nms_impl must be 'xla' or 'pallas', got {rpn.nms_impl!r}")
 
     def propose(level_scores, level_deltas, level_anchor, image_hw) -> Proposals:
+        kw = dict(pre_nms_top_n=pre, post_nms_top_n=post, nms_threshold=rpn.nms_threshold,
+                  min_size=rpn.min_size, nms_sweep_cap=rpn.nms_sweep_cap,
+                  nms_impl=rpn.nms_impl, fused_middle=rpn.fused_middle)
         if len(level_scores) == 1:
-            raise NotImplementedError("single-level (C4) proposals are not ported")
-        return generate_fpn_proposals(
-            level_scores, level_deltas, level_anchor, image_hw,
-            pre_nms_top_n=pre,
-            post_nms_top_n=post,
-            nms_threshold=rpn.nms_threshold, min_size=rpn.min_size,
-            nms_sweep_cap=rpn.nms_sweep_cap, nms_impl=rpn.nms_impl,
-            fused_middle=rpn.fused_middle,
-        )
+            (s,), (d,), (a,) = (level_scores.values(), level_deltas.values(),
+                                level_anchor.values())
+            return generate_proposals(s, d, a, image_hw, **kw)
+        return generate_fpn_proposals(level_scores, level_deltas, level_anchor, image_hw, **kw)
 
     return propose
 
@@ -132,17 +132,21 @@ def _pool_rois_impl(cfg: ModelConfig, feats, rois, pooled_size: int, roi_level_s
     autograd ``Function`` whose backward ``rcnn.roi_align_bwd_impl`` picks
     (``"pallas"`` kernel B2, ``"xla"`` autograd of the plain forward), or
     B1 alone when grad mode is off; ``"xla"`` the plain gather,
-    differentiated by autograd."""
+    differentiated by autograd.  A single level (the C4 recipe) takes the
+    kernels too, over the one-level pyramid, where the JAX package takes
+    its XLA gather: B1 stages no window, so a roi may span the map, and on
+    one level the two compute the same bits (``ops/roi_align.py``)."""
     impl, bwd = cfg.rcnn.roi_align_impl, cfg.rcnn.roi_align_bwd_impl
     if impl not in ("xla", "pallas"):
         raise ValueError(f"rcnn.roi_align_impl must be 'xla' or 'pallas', got {impl!r}")
     if bwd not in ("xla", "pallas"):
         raise ValueError(f"rcnn.roi_align_bwd_impl must be 'xla' or 'pallas', got {bwd!r}")
     roi_levels = {l: f for l, f in feats.items() if l in roi_level_set}
-    if len(roi_levels) < 2:
-        raise NotImplementedError("single-level (C4) ROIAlign is not ported")
     sr = cfg.rcnn.sampling_ratio
     if impl == "xla":
+        if len(roi_levels) == 1:
+            (lvl, f), = roi_levels.items()
+            return roi_align(f, rois, pooled_size, 1.0 / 2**lvl, sr)
         return multilevel_roi_align(roi_levels, rois, pooled_size, sr)
     return multilevel_roi_align_fast(roi_levels, rois, pooled_size, sr, bwd)
 

@@ -6,13 +6,25 @@ import torch
 from torch import nn
 
 from mx_rcnn_tpu_torch.config import BackboneConfig
-from mx_rcnn_tpu_torch.models.resnet import STAGE_BLOCKS, ResNet
+from mx_rcnn_tpu_torch.models.resnet import STAGE_BLOCKS, STAGE_CHANNELS, ResNet
+from mx_rcnn_tpu_torch.models.vgg import VGG16, VGG16_GROUPS
 
 
-def build_backbone(cfg: BackboneConfig, dtype: torch.dtype, device=None) -> nn.Module:
-    """``dtype`` is the resolved policy's compute dtype."""
+def backbone_channels(cfg: BackboneConfig, level: int) -> int:
+    """Channels of the backbone's output at ``level``."""
+    if cfg.name == "vgg16":
+        return VGG16_GROUPS[-1][0]
+    return STAGE_CHANNELS[level]
+
+
+def build_backbone(cfg: BackboneConfig, dtype: torch.dtype, device=None,
+                   out_levels: tuple[int, ...] = (2, 3, 4, 5)) -> nn.Module:
+    """``dtype`` is the resolved policy's compute dtype; ``out_levels``
+    the ResNet stages returned (VGG returns conv5_3 as level 4)."""
     if cfg.norm != "frozen_bn":
         raise NotImplementedError(f"backbone.norm={cfg.norm!r} is not ported")
-    if cfg.name not in STAGE_BLOCKS:
-        raise NotImplementedError(f"backbone {cfg.name!r} is not ported")
-    return ResNet(STAGE_BLOCKS[cfg.name], dtype=dtype, device=device)
+    if cfg.name in STAGE_BLOCKS:
+        return ResNet(STAGE_BLOCKS[cfg.name], dtype=dtype, device=device, out_levels=out_levels)
+    if cfg.name == "vgg16":
+        return VGG16(dtype=dtype, device=device)
+    raise ValueError(f"unknown backbone {cfg.name!r}")

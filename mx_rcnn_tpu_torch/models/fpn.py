@@ -11,8 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mx_rcnn_tpu_torch.models.layers import Conv2d
-
-_BACKBONE_CHANNELS = {2: 256, 3: 512, 4: 1024, 5: 2048}
+from mx_rcnn_tpu_torch.models.resnet import STAGE_CHANNELS
 
 
 class FPN(nn.Module):
@@ -25,7 +24,7 @@ class FPN(nn.Module):
         kw = dict(dtype=dtype, device=device)
         for l in self.levels:
             self.add_module(
-                f"lateral{l}", Conv2d(_BACKBONE_CHANNELS[l], channels, 1, **kw)
+                f"lateral{l}", Conv2d(STAGE_CHANNELS[l], channels, 1, **kw)
             )
             self.add_module(f"output{l}", Conv2d(channels, channels, 3, **kw))
 

@@ -9,6 +9,11 @@ tree and are not carried over.
 
 Activations are NCHW views of ``channels_last`` memory, which is the
 JAX package's NHWC layout in memory.
+
+``out_levels`` names the stages returned.  Every stage is built, so the
+parameter tree is the JAX one whatever the levels (the C4 recipe keeps
+``layer4``, which the optimizer still decays), but the forward stops
+after the last stage returned.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ STAGE_BLOCKS = {
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
 }
+# Channels of each stage's output, by level.
+STAGE_CHANNELS = {2: 256, 3: 512, 4: 1024, 5: 2048}
 
 
 class Bottleneck(nn.Module):
@@ -56,12 +63,15 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """images (N, 3, H, W) -> {2: C2, 3: C3, 4: C4, 5: C5}."""
+    """images (N, 3, H, W) -> {level: C_level for level in out_levels},
+    from {2: C2, 3: C3, 4: C4, 5: C5}."""
 
     def __init__(self, blocks=STAGE_BLOCKS["resnet50"],
-                 dtype: torch.dtype = torch.bfloat16, device=None) -> None:
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 out_levels: tuple[int, ...] = (2, 3, 4, 5)) -> None:
         super().__init__()
         self.dtype = dtype
+        self.out_levels = tuple(out_levels)
         self.conv1 = Conv2d(3, 64, 7, 2, bias=False, dtype=dtype, device=device)
         self.bn1 = FrozenBatchNorm(64, dtype=dtype, device=device)
         self.block_names: list[list[str]] = []
@@ -82,8 +92,9 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
         x = F.max_pool2d(x, 3, 2, 1)
         feats = {}
-        for i, names in enumerate(self.block_names):
+        for i, names in enumerate(self.block_names[:max(self.out_levels) - 1]):
             for name in names:
                 x = getattr(self, name)(x)
-            feats[i + 2] = x
+            if i + 2 in self.out_levels:
+                feats[i + 2] = x
         return feats

@@ -1,10 +1,11 @@
 """RPN proposal generation (port of ``mx_rcnn_tpu/ops/proposals.py``).
 
-Decode RPN outputs into scored boxes, take the pre-NMS top-k per FPN
-level, NMS, and emit a fixed ``post_nms_top_n`` roi set per image.  The
-batch axis is written out where the JAX code vmaps over images; every
-function here takes (B, ...) tensors and per-image sizes ``image_hw``
-(B, 2) = (height, width).
+Decode RPN outputs into scored boxes, take the pre-NMS top-k (per FPN
+level in :func:`generate_fpn_proposals`, over the one map of the C4
+recipe in :func:`generate_proposals`), NMS, and emit a fixed
+``post_nms_top_n`` roi set per image.  The batch axis is written out
+where the JAX code vmaps over images; every function here takes (B, ...)
+tensors and per-image sizes ``image_hw`` (B, 2) = (height, width).
 
 Three middles, as in the JAX package:
   * fused (``fused_middle``): decode -> clip -> snap -> NMS in the CUDA
@@ -84,6 +85,52 @@ def _stack_padded(parts, fill):
             p = torch.cat([p, p.new_full((p.shape[0], pad, *p.shape[2:]), fill)], dim=1)
         out.append(p)
     return torch.stack(out, dim=1)
+
+
+def generate_proposals(
+    scores: torch.Tensor,
+    deltas: torch.Tensor,
+    anchors: torch.Tensor,
+    image_hw: torch.Tensor,
+    pre_nms_top_n: int = 6000,
+    post_nms_top_n: int = 300,
+    nms_threshold: float = 0.7,
+    min_size: float = 0.0,
+    nms_sweep_cap: int = 0,
+    nms_impl: str = "xla",
+    fused_middle: bool = False,
+) -> Proposals:
+    """Single-level proposals: top-k, NMS, and the first
+    ``post_nms_top_n`` kept boxes in score order.
+
+    scores (B, A), deltas (B, A, 4), anchors (A, 4).  The fused middle
+    runs as one (B, L = 1, k) problem, the NMS kernel as B problems of
+    one launch."""
+    if fused_middle:
+        from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+
+        top_scores, top_deltas, top_anchors = _topk_candidates(scores, deltas, anchors,
+                                                               pre_nms_top_n)
+        bx, msc, keep = fused_middle_levels(
+            top_anchors[:, None].float(), top_deltas[:, None].float(),
+            top_scores[:, None].float(), image_hw, min_size=min_size,
+            iou_threshold=nms_threshold,
+        )
+        boxes, masked = bx[:, 0], msc[:, 0]
+        keep_idx, keep_valid = rank_keep(keep[:, 0], masked, post_nms_top_n)
+    else:
+        boxes, masked = _pre_nms_candidates(scores, deltas, anchors, image_hw,
+                                            pre_nms_top_n, min_size)
+        keep_idx, keep_valid = nms_indices(
+            boxes, masked, nms_threshold, post_nms_top_n, sweep_cap=nms_sweep_cap,
+            nms_impl=nms_impl,
+        )
+    rois = torch.gather(boxes, 1, keep_idx[..., None].expand(*keep_idx.shape, 4))
+    return Proposals(
+        rois=rois * keep_valid[..., None],
+        scores=torch.where(keep_valid, torch.gather(masked, 1, keep_idx), 0.0),
+        valid=keep_valid,
+    )
 
 
 def generate_fpn_proposals(

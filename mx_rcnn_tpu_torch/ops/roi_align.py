@@ -1,7 +1,13 @@
-"""Multi-level FPN ROIAlign in plain torch (port of
+"""Single- and multi-level ROIAlign in plain torch (port of
 ``mx_rcnn_tpu/ops/roi_align.py``).
 
-:func:`multilevel_roi_align` is the oracle: the flattened-pyramid gather
+:func:`roi_align` pools one feature map at a fixed ``spatial_scale``, the
+XLA path the JAX package takes for the single-level C4 recipe.  Over the
+one-level pyramid ``{4: f}``, :func:`multilevel_roi_align` assigns every
+roi to level 4 and scales by 2**-4 = 1/16, so it computes the same bits;
+the port's C4 graph pools through B1 and B2 on that pyramid.
+
+:func:`multilevel_roi_align` is the FPN oracle: the flattened-pyramid gather
 of the JAX XLA path, with the batch written out where JAX vmaps.  It is
 the plain version of the CUDA kernel B1 (``ops/cuda/roi_align.py``) and
 the CPU path of ``rcnn.roi_align_impl="pallas"``;
@@ -81,6 +87,51 @@ def _sample_grid(rois, assignment, output_size: int):
     return x1, y1, true_div(rw, output_size), true_div(rh, output_size)
 
 
+def roi_align(
+    features: torch.Tensor,
+    rois: torch.Tensor,
+    output_size: int = 7,
+    spatial_scale: float = 1.0 / 16.0,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """One feature map (B, H, W, C), rois (B, R, 4) in image coordinates
+    -> (B, R, S, S, C) in the features' dtype."""
+    b, h, w, c = features.shape
+    r = rois.shape[1]
+    dev = rois.device
+    scaled = rois * spatial_scale
+    x1, y1 = scaled[..., 0], scaled[..., 1]
+    rw = torch.clamp(scaled[..., 2] - x1, min=1.0)
+    rh = torch.clamp(scaled[..., 3] - y1, min=1.0)
+    bin_w, bin_h = true_div(rw, output_size), true_div(rh, output_size)
+    h_r = torch.full((b, r), float(h), device=dev)
+    w_r = torch.full((b, r), float(w), device=dev)
+    wi_r = torch.full((b, r), w, dtype=torch.int64, device=dev)
+    base_r = torch.zeros((b, r), dtype=torch.int64, device=dev)
+    flat = features.reshape(b, h * w, c)
+    return _pool(flat, h_r, w_r, wi_r, base_r, x1, y1, bin_w, bin_h, output_size,
+                 sampling_ratio)
+
+
+def _pool(flat, h_r, w_r, wi_r, base_r, x1, y1, bin_w, bin_h, output_size: int,
+          sampling_ratio: int) -> torch.Tensor:
+    """Average the ``sampling_ratio**2`` bilinear samples of each of the
+    S x S bins of each roi (per-roi corner, bin size, map bounds, pitch and
+    base row in ``flat`` (B, N, C)), in float32, cast once."""
+    b, r = x1.shape
+    bins = torch.arange(output_size, dtype=torch.float32, device=x1.device)
+    out = torch.zeros((b, r, output_size, output_size, flat.shape[-1]), dtype=torch.float32,
+                      device=x1.device)
+    for iy in range(sampling_ratio):
+        fy = (iy + 0.5) / sampling_ratio
+        sy = y1[..., None] + (bins + fy) * bin_h[..., None]       # (B, R, S)
+        for ix in range(sampling_ratio):
+            fx = (ix + 0.5) / sampling_ratio
+            sx = x1[..., None] + (bins + fx) * bin_w[..., None]
+            out = out + _bilinear_gather_flat(flat, h_r, w_r, wi_r, base_r, sy, sx)
+    return true_div(out, sampling_ratio * sampling_ratio).to(flat.dtype)
+
+
 def multilevel_roi_align(
     feature_pyramid: dict[int, torch.Tensor],
     rois: torch.Tensor,
@@ -91,7 +142,7 @@ def multilevel_roi_align(
     """pyramid {level: (B, H_l, W_l, C)} (stride 2**level, consecutive
     levels), rois (B, R, 4) -> (B, R, S, S, C) in the features' dtype."""
     levels = sorted(feature_pyramid)
-    b, r = rois.shape[:2]
+    b = rois.shape[0]
     c = feature_pyramid[levels[0]].shape[-1]
     flat = torch.cat(
         [feature_pyramid[l].reshape(b, -1, c) for l in levels], dim=1
@@ -105,19 +156,8 @@ def multilevel_roi_align(
         max_extent_cells=max_extent_cells,
     )                                                     # (B, R)
     li = (assignment - levels[0]).long()
-    h_r, w_r, wi_r, base_r = hs[li], ws_f[li], ws_i[li], bases[li]
-    x1, y1, bin_w, bin_h = _sample_grid(rois, assignment, output_size)
-    bins = torch.arange(output_size, dtype=torch.float32, device=dev)
-
-    out = torch.zeros((b, r, output_size, output_size, c), dtype=torch.float32, device=dev)
-    for iy in range(sampling_ratio):
-        fy = (iy + 0.5) / sampling_ratio
-        sy = y1[..., None] + (bins + fy) * bin_h[..., None]       # (B, R, S)
-        for ix in range(sampling_ratio):
-            fx = (ix + 0.5) / sampling_ratio
-            sx = x1[..., None] + (bins + fx) * bin_w[..., None]
-            out = out + _bilinear_gather_flat(flat, h_r, w_r, wi_r, base_r, sy, sx)
-    return true_div(out, sampling_ratio * sampling_ratio).to(flat.dtype)
+    return _pool(flat, hs[li], ws_f[li], ws_i[li], bases[li],
+                 *_sample_grid(rois, assignment, output_size), output_size, sampling_ratio)
 
 
 def _taps(h_r, w_r, sy, sx):

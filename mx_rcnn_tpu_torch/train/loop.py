@@ -4,8 +4,8 @@ stacked steps, the observability plane, the profile window and the
 transfer guard).
 
 :func:`build_all` makes the model (random weights from ``train.seed``,
-the given ``state_dict``, and a torchvision ResNet ``.pth`` over the
-backbone), freezes the reference's backbone prefixes, and builds the
+the given ``state_dict``, and a torchvision ResNet or VGG-16 ``.pth``
+over the backbone), freezes the reference's backbone prefixes, and builds the
 schedule, the optimizer, the state and the step.  :func:`train` runs the
 steps over any roidb that ``data/datasets.py::build_dataset`` returns, in
 the JAX loader's batch schedule (``data/loader.py::DetectionLoader``).
@@ -60,10 +60,12 @@ from mx_rcnn_tpu_torch.weights import init_variables
 
 logger = logging.getLogger("mx_rcnn_tpu_torch")
 
-# The reference's fixed_param_prefix per backbone: stem and stage 1.
+# The reference's fixed_param_prefix per backbone: stem and stage 1 for
+# ResNet, groups 1-2 (conv1_x, conv2_x) for VGG.
 FREEZE_PREFIXES = {
     "resnet50": ("backbone/conv1", "backbone/bn1", "backbone/layer1"),
     "resnet101": ("backbone/conv1", "backbone/bn1", "backbone/layer1"),
+    "vgg16": ("backbone/group1", "backbone/group2"),
 }
 
 
@@ -85,8 +87,9 @@ def build_all(cfg: Config, device=None, variables: Optional[dict] = None,
               pretrained: Optional[str] = None):
     """-> (model, optimizer, state, step_fn, global_batch).  ``variables``:
     a ``state_dict`` to start from (default: ``init_variables`` seeded by
-    ``train.seed``); ``pretrained``: a torchvision ResNet ``.pth`` whose
-    tensors then replace the backbone's (``train/import_torch.py``).  With
+    ``train.seed``); ``pretrained``: a torchvision ResNet or VGG-16 ``.pth``
+    whose tensors then replace the backbone's (and VGG's ``fc6``/``fc7``;
+    ``train/import_torch.py``).  With
     ``backbone.freeze_stages > 0`` the backbone's ``FREEZE_PREFIXES`` are
     frozen."""
     dev = resolve_device(device)
@@ -175,9 +178,9 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
     nothing is written and the guardian can only detect and raise.
     ``resume``: continue from the newest finite checkpoint, on the same
     data schedule; ``strict_resume`` makes a config drift from the run's
-    ``config.json`` an error.  ``pretrained``: a torchvision ResNet
-    ``.pth`` for the backbone.  ``loader``: a ``DetectionLoader`` to draw
-    from (default: the filtered train roidb of ``cfg.data``)."""
+    ``config.json`` an error.  ``pretrained``: a torchvision ResNet or
+    VGG-16 ``.pth`` for the backbone.  ``loader``: a ``DetectionLoader``
+    to draw from (default: the filtered train roidb of ``cfg.data``)."""
     _, _, state, step_fn, global_batch = build_all(cfg, device, variables, pretrained)
     dev = next(state.model.parameters()).device
     if steps is None:

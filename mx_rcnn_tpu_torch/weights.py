@@ -70,7 +70,8 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
 def to_jax_variables(state_dict) -> dict:
     """The inverse of :func:`from_jax_variables`: a ``state_dict`` -> a
     ``{"params", "constants"}`` tree of numpy arrays.  A module with a
-    ``var`` buffer is a FrozenBN, whose tensors are constants."""
+    ``var`` buffer is a FrozenBN, whose tensors are constants; a model
+    without one (VGG-16) has no ``constants``, as in flax."""
     tree: dict = {"params": {}, "constants": {}}
     for key, value in state_dict.items():
         path = key.split(".")
@@ -84,7 +85,7 @@ def to_jax_variables(state_dict) -> dict:
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(arr)
-    return tree
+    return {coll: sub for coll, sub in tree.items() if sub}
 
 
 # Flax's initializers (models/heads.py:24-25): normal(0.01) for the RPN

@@ -1,11 +1,14 @@
 """The pretrained import against ``mx_rcnn_tpu/train/import_torch.py`` on
-torchvision-layout ResNet state_dicts the tests write from a seed (the
-key names of ``torchvision.models.resnet50/101``, ``fc.*`` and
-``num_batches_tracked`` included): the port's state_dict after
-``load_pretrained_backbone`` equals the JAX variables after theirs,
-carried across by ``weights.from_jax_variables``, bitwise, for
-ResNet-50 and ResNet-101; a shape mismatch and a file that matches
-nothing raise in both; ``build_all(pretrained=)`` trains from it.
+torchvision-layout ResNet and VGG-16 state_dicts the tests write from a
+seed (the key names of ``torchvision.models.resnet50/101`` and
+``vgg16``, ``fc.*``, the classifier and ``num_batches_tracked``
+included): the port's state_dict after ``load_pretrained_backbone``
+equals the JAX variables after theirs, carried across by
+``weights.from_jax_variables``, bitwise, for ResNet-50, ResNet-101 and
+VGG-16 (fc6/fc7 seeded from the classifier, or kept with a warning when
+the box head's dimensions differ); a shape mismatch, another VGG variant
+and a file that matches nothing raise in both; ``build_all(pretrained=)``
+and ``train_cli --pretrained`` train from it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import pytest
 import torch
 
 from mx_rcnn_tpu.train.import_torch import load_pretrained_backbone as jax_load
-from mx_rcnn_tpu_torch.config import BackboneConfig, get_config
+from mx_rcnn_tpu_torch.config import BackboneConfig, apply_overrides, get_config
 from mx_rcnn_tpu_torch.models.resnet import STAGE_BLOCKS
 from mx_rcnn_tpu_torch.train.import_torch import load_pretrained_backbone, map_torch_resnet
 from mx_rcnn_tpu_torch.train.loop import build_all
@@ -144,3 +147,104 @@ def test_build_all_starts_from_the_file(tmp_path):
     assert torch.equal(model.rpn_head.conv.weight, fresh.rpn_head.conv.weight)
     assert not np.array_equal(model.backbone.conv1.weight.detach().numpy(),
                               fresh.backbone.conv1.weight.detach().numpy())
+
+
+def torchvision_vgg16(seed: int = 0, with_classifier: bool = True) -> dict[str, torch.Tensor]:
+    """A state_dict with torchvision's VGG-16 (cfg D, no BN) key names and
+    shapes, the ImageNet classifier included."""
+    g = torch.Generator().manual_seed(seed)
+    sd: dict[str, torch.Tensor] = {}
+    cin = 3
+    for idx, cout in zip((0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28),
+                         (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)):
+        sd[f"features.{idx}.weight"] = torch.randn((cout, cin, 3, 3), generator=g) * 0.05
+        sd[f"features.{idx}.bias"] = torch.randn(cout, generator=g) * 0.1
+        cin = cout
+    if with_classifier:
+        for idx, (cout, cin) in ((0, (4096, 512 * 7 * 7)), (3, (4096, 4096)), (6, (1000, 4096))):
+            sd[f"classifier.{idx}.weight"] = torch.randn((cout, cin), generator=g) * 0.01
+            sd[f"classifier.{idx}.bias"] = torch.randn(cout, generator=g) * 0.1
+    return sd
+
+
+def _vgg(hidden_dim: int):
+    cfg = get_config("vgg16_voc07")
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, rcnn=dataclasses.replace(cfg.model.rcnn, hidden_dim=hidden_dim)))
+
+
+@pytest.mark.parametrize("hidden_dim", [4096, 64])
+def test_vgg16_import_matches_jax(tmp_path, caplog, hidden_dim):
+    """The trunk from ``features.*``; ``fc6``/``fc7`` from the classifier
+    when the box head has its dimensions (fc6's input permuted from CHW to
+    the pooled rois' HWC order), else kept at random init with a warning,
+    as in JAX."""
+    variables = init_variables(_vgg(hidden_dim).model, torch.Generator().manual_seed(1))
+    sd = torchvision_vgg16(seed=2)
+    path = str(tmp_path / "vgg16.pth")
+    torch.save(sd, path)
+    got = load_pretrained_backbone(variables, path)
+    want = from_jax_variables(jax_load(to_jax_variables(variables), path))
+    assert got.keys() == want.keys() == variables.keys()
+    assert all(torch.equal(got[k], want[k]) for k in got)
+    assert torch.equal(got["backbone.group4.conv4_3.weight"], sd["features.21.weight"])
+    assert torch.equal(got["backbone.group5.conv5_1.bias"], sd["features.24.bias"])
+    seeded = ["box_head.fc6.weight", "box_head.fc6.bias", "box_head.fc7.weight",
+              "box_head.fc7.bias"]
+    moved = [k for k in got if not torch.equal(got[k], variables[k])]
+    trunk = [k for k in got if k.startswith("backbone.")]
+    if hidden_dim == 4096:
+        assert sorted(moved) == sorted(trunk + seeded)
+        w6 = sd["classifier.0.weight"].reshape(4096, 512, 7, 7)
+        assert torch.equal(got["box_head.fc6.weight"].reshape(4096, 7, 7, 512)[:, 2, 5],
+                           w6[:, :, 2, 5])
+        assert torch.equal(got["box_head.fc7.weight"], sd["classifier.3.weight"])
+    else:
+        assert sorted(moved) == sorted(trunk)
+        assert "fc6/fc7 keep random init" in caplog.text
+
+
+def test_vgg16_variant_and_mismatch_raise(tmp_path):
+    variables = init_variables(_vgg(64).model, torch.Generator().manual_seed(1))
+    bn = torchvision_vgg16(with_classifier=False)
+    bn["features.1.weight"] = bn.pop("features.2.weight")[:, 0, 0, 0]   # vgg16_bn-like
+    bad = str(tmp_path / "vgg16_bn.pth")
+    torch.save(bn, bad)
+    for load in (load_pretrained_backbone, lambda v, p: jax_load(to_jax_variables(v), p)):
+        with pytest.raises(ValueError, match="unsupported torchvision VGG variant"):
+            load(variables, bad)
+    sd = torchvision_vgg16(with_classifier=False)
+    sd["features.7.weight"] = torch.zeros(128, 128, 1, 1)
+    wrong = str(tmp_path / "wrong.pth")
+    torch.save(sd, wrong)
+    for load in (load_pretrained_backbone, lambda v, p: jax_load(to_jax_variables(v), p)):
+        with pytest.raises(ValueError, match="shape mismatch"):
+            load(variables, wrong)
+
+
+def test_train_cli_starts_vgg16_from_the_file(tmp_path):
+    """``train_cli --pretrained`` with a VGG-16 file: the step-0
+    checkpoint holds the file's trunk."""
+    from mx_rcnn_tpu_torch.cli import train_cli
+    from mx_rcnn_tpu_torch.train.checkpoint import restore_checkpoint
+
+    sd = torchvision_vgg16(seed=5, with_classifier=False)
+    path = str(tmp_path / "vgg16.pth")
+    torch.save(sd, path)
+    over = ["model.rcnn.hidden_dim=64", "data.dataset=synthetic", "data.image_size=64,96",
+            "data.short_side=64", "data.max_side=96", "model.rpn.train_pre_nms_top_n=100",
+            "model.rpn.train_post_nms_top_n=50", "model.rcnn.roi_batch_size=16",
+            "model.precision.policy=float32", "model.backbone.dtype=float32"]
+    args = ["--config", "vgg16_voc07", "--steps", "1", "--device", "cpu", "--no-eval",
+            "--workdir", str(tmp_path), "--pretrained", path]
+    for o in over:
+        args += ["--set", o]
+    assert train_cli.main(args) == {"final_step": 1}
+    cfg = apply_overrides(get_config("vgg16_voc07"), over)
+    _, _, state, _, _ = build_all(cfg, "cpu")
+    restore_checkpoint(str(tmp_path / "vgg16_voc07" / "ckpt"), state, step=0)
+    got = state.model.state_dict()
+    for g, layers in enumerate(((0, 2), (5, 7), (10, 12, 14), (17, 19, 21), (24, 26, 28)), 1):
+        for i, idx in enumerate(layers, 1):
+            assert torch.equal(got[f"backbone.group{g}.conv{g}_{i}.weight"],
+                               sd[f"features.{idx}.weight"])

@@ -17,7 +17,10 @@ with the same bits from two launches.  B2
 (ROIAlign backward) sums in another order than the plain ``index_add_``:
 float32 within 1e-5 of the largest gradient of ``|g|`` (the sum of the
 absolute contributions), bfloat16 within one bf16 ulp of the plain
-version's float32 sum plus that; two launches are bitwise equal.
+version's float32 sum plus that; two launches are bitwise equal.  The
+C4 shapes: B1 and B2 on one stride-16 level at C = 512 and 1024 (B1
+bitwise to the single-level ``roi_align`` in float32), B3 at L = 1 and
+B4 on one level at 6000 candidates.
 """
 
 from __future__ import annotations
@@ -448,3 +451,75 @@ def test_roi_align_kernel_edge_rois(cuda, kind, dtype):
     got = _hold_fwd(_pyramid(rng, 64, dtype), rois)
     if kind == "outside":
         assert not got[:, ::2].any()  # wholly outside: every sample counts zero
+
+
+# The single-level C4 recipe: one stride-16 map (C = 1024 for ResNet's
+# C4, 512 for VGG's conv5_3) and rois as wide as its 128-512 px anchors
+# and their ratios, up to the whole map.
+def _c4_case(rng, c, rois_per_image=128, canvas=(608, 1024)):
+    h, w = canvas
+    feat = torch.tensor(rng.randn(2, h // 16, w // 16, c), dtype=torch.float32, device="cuda")
+    ctr = rng.uniform(0, [w, h], (2, rois_per_image, 2))
+    size = rng.uniform(16, 1.2 * w, (2, rois_per_image, 2))
+    rois = np.concatenate([ctr - size / 2, ctr + size / 2], -1)
+    rois[:, 0] = [0, 0, w, h]
+    return feat, torch.tensor(rois, dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [512, 1024])
+def test_roi_align_kernel_one_level_c4(cuda, c, dtype):
+    """B1 over the one-level pyramid {4: C4}: every roi on level 4 at scale
+    1/16, which is the single-level ``roi_align`` of the C4 recipe; in
+    float32 the kernel gives its bits exactly."""
+    from mx_rcnn_tpu_torch.ops.roi_align import roi_align
+
+    feat, rois = _c4_case(np.random.RandomState(c), c)
+    feat = feat.to(dtype)
+    assert not roi_level_index(rois, (4,)).any()
+    got = _hold_fwd({4: feat}, rois)
+    if dtype == torch.float32:
+        assert torch.equal(got, roi_align(feat, rois, 7, 1.0 / 16, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [512, 1024])
+def test_roi_align_bwd_kernel_one_level_c4(cuda, c, dtype):
+    """B2 on one level at C4 shapes, 128 rois an image: most 8x8 tiles'
+    lists hold most of the image's rois."""
+    rng = np.random.RandomState(c + 1)
+    feat, rois = _c4_case(rng, c)
+    shapes = {4: tuple(feat.shape[1:3])}
+    li = roi_level_index(rois, (4,))
+    g = torch.tensor(rng.randn(2, rois.shape[1], 7, 7, c), dtype=torch.float32,
+                     device=cuda).to(dtype)
+    got = multilevel_roi_align_bwd_cuda(shapes, dtype, rois, li, g)
+    again = multilevel_roi_align_bwd_cuda(shapes, dtype, rois, li, g)
+    torch.cuda.synchronize()
+    want = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float())
+    scale = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float().abs())
+    assert torch.equal(got[4], again[4]) and got[4].shape == (2, *shapes[4], c)
+    diff = (got[4].float() - want[4]).abs()
+    tol = 1e-5 * float(scale[4].max().clamp(min=1.0))
+    if dtype == torch.bfloat16:
+        tol = _ulp(want[4]) + tol
+    assert bool((diff <= tol).all())
+
+
+def test_fused_middle_kernel_one_level_k6000(cuda):
+    """B3 at L = 1 and the C4 pre-NMS top-n, k = 6000: 94 chunk steps."""
+    an, dl, ts, hw = _middle_case(np.random.RandomState(6000), 2, 1, 6000)
+    got = fused_middle_levels(an, dl, ts, hw, 0.0, 0.7)
+    want = fused_middle_levels_plain(an, dl, ts, hw, 0.0, 0.7)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2].any() and not got[2].all()
+
+
+def test_nms_kernel_one_level_n6000(cuda):
+    """B4 on one level at the C4 pre-NMS top-n, n = 6000, two problems."""
+    b, v = _nms_case(np.random.RandomState(6001), 2, 6000)
+    got = nms_keep_sorted_cuda(b, v, 0.7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms_keep_sorted_plain(b, v, 0.7))
+    assert not got[1].any() and got[0].any()
