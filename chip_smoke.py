@@ -99,6 +99,32 @@ when every phase passed):
    as in phase 3: the ``kernels`` line's ``@c4`` entries.  Phase c4's
    launches count in B1-B4's entries as well.  The rehearsal cuts the
    canvas to 192x256 and the proposals to hundreds.
+7d. Fast R-CNN mode and the 4-step alternate schedule
+   (:func:`fast_rcnn_phase`), ``vgg16_voc07`` at full width (608x1024,
+   batch 1, 6000/2000 proposals in training, 6000/300 in test, 128 rois
+   an image), random weights from the seed, on eight VOC-like train and
+   eight val records (VOC's image sizes, three portrait, flips on),
+   through the port's entry points: (a) ``alternate_cli.main
+   --external-proposals``, 3 steps a phase, ``rpn.fused_middle=true``
+   (rpn1, a B3 dump, rcnn1 on the pkl with the RPN out of the graph,
+   rpn2, a dump, rcnn2, the combined checkpoint, the eval): each phase's
+   losses finite, its frozen groups bitwise unchanged and every other
+   parameter moved, its step restarted, the Fast R-CNN phases' RPN
+   metrics exactly 0; each dump one entry a train record inside its
+   image; rcnn1's first ``ext_rois`` bitwise a numpy recompute from the
+   pkl; the final checkpoint verified.  (b) The default in-graph
+   schedule, 2 phases of 2 steps, the same frozen and finite checks.
+   (c) ``vgg_fast_rcnn.sh``: ``eval_cli.main --proposals
+   --proposals-split val`` under ``rpn.nms_impl=pallas`` (B4), then
+   ``--from-proposals`` (B1), metrics finite, the first batch identical
+   in float32 through the kernels and the plain path.  Counts set to 0
+   before each path and read after: B1, B2, B3 must launch in (a) and
+   (b), B4 and B1 in (c).  (d) B1 (bf16 within one ulp, f32 bitwise) and
+   B2 on rcnn1's last step, B3 and B4 on the final RPN's outputs at the
+   dump's 6000 candidates, each against its plain version and timed: the
+   ``kernels`` line's ``@fast`` entries.  Seconds a step per phase with
+   ``data_stall_ms``, the dumps' images a second, peak memory and the
+   phase's seconds are printed.  The rehearsal cuts it as 7c.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -1243,18 +1269,21 @@ def eval_breakdown(dev, rehearsal: bool, cfg, model, first) -> dict:
     return {"ms": ms, **trace}
 
 
-def first_batch_reference(dev, cfg, state_dict, roidb, batch: int, label: str):
+def first_batch_reference(dev, cfg, state_dict, roidb, batch: int, label: str,
+                          proposals=None):
     """The first eval batch of ``roidb`` through the kernels and through the
     plain versions (``roi_align_impl=xla``), both in float32 from
     ``state_dict``: the detections must be identical (B1 is the one kernel
     of this path whatever the mode, bitwise in float32), and there must be
-    some.  Returns the batch."""
+    some.  ``proposals``: a proposal map whose boxes the batch carries
+    (``--from-proposals``).  Returns the batch."""
     from mx_rcnn_tpu_torch.config import apply_overrides
     from mx_rcnn_tpu_torch.data.loader import eval_batches
     from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
     from mx_rcnn_tpu_torch.parallel.step import make_eval_step
 
-    first, _ = next(eval_batches(roidb, cfg.data, batch, dev))
+    first, _ = next(eval_batches(roidb, cfg.data, batch, dev, proposals,
+                                 cfg.model.rpn.test_post_nms_top_n))
     dets = {}
     for name, over in (("kernels", []), ("plain", ["model.rcnn.roi_align_impl=xla"])):
         fcfg = apply_overrides(cfg, ["model.precision.policy=float32", *over])
@@ -1603,35 +1632,33 @@ def c4_eval(dev, rehearsal: bool, trained: dict, counters: dict) -> dict:
     return {"launches": launches, "img_s": n / wall, "metrics": metrics}
 
 
+def kernel_entry(cases: dict) -> dict:
+    """One kernels-line entry from ``cases`` {case: result}: the first case
+    is the headline, the others' numbers are suffixed extras, and it
+    matches when every case does."""
+    first, *rest = cases
+    out = dict(cases[first], match=all(r["match"] for r in cases.values()), extra={})
+    for case in rest:
+        r = cases[case]
+        out["extra"].update({f"{k}_{case}": r[k] for k in
+                             ("ms", "kernel_ms", "plain_ms", "max_abs_err")})
+        out["extra"][f"bound_ms_{case}"] = r["bound"][0]
+    return out
+
+
 def c4_kernels(dev, rehearsal: bool, seed: int, runs: dict, chunk_us: dict) -> dict:
     """Phase c4 (d): each kernel at the C4 shapes against its plain
     version, timed as in phase 3: B1 on one level on the rois phase (a)
     pooled, bf16 (the path's dtype, within one bf16 ulp) and f32
     (bitwise), for r101_coco (C = 1024) and vgg16_voc07 (C = 512); B2 on
     phase (b)'s last-step inputs; B3 at L = 1 and B4 on one level at the
-    serving pre-NMS top-n (6000), both bitwise.  ``chunk_us``: phase 3's
-    sweep chunk step of B3 and B4, for their sequential floor."""
+    serving pre-NMS top-n (6000), both bitwise (:func:`proposal_kernels`).
+    ``chunk_us``: phase 3's sweep chunk step of B3 and B4, for their
+    sequential floor."""
     from mx_rcnn_tpu_torch.detection.graph import level_anchors
-    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels, fused_middle_levels_plain
-    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_keep_sorted_cuda, nms_keep_sorted_plain
-    from mx_rcnn_tpu_torch.ops.proposals import _pre_nms_candidates, _topk_candidates
 
     clock = Clock(dev)
     iters, plain_iters = (2, 1) if rehearsal else (20, 3)
-
-    def entry(cases: dict) -> dict:
-        """One kernels-line entry from ``cases`` {case: result}: the first
-        case is the headline, the others' numbers are suffixed extras, and
-        it matches when every case does."""
-        first, *rest = cases
-        out = dict(cases[first], match=all(r["match"] for r in cases.values()), extra={})
-        for case in rest:
-            r = cases[case]
-            out["extra"].update({f"{k}_{case}": r[k] for k in
-                                 ("ms", "kernel_ms", "plain_ms", "max_abs_err")})
-            out["extra"][f"bound_ms_{case}"] = r["bound"][0]
-        return out
-
     fwd, bwd = {}, {}
     for name in runs:
         pyr, rois = runs[name]["serve"]["pool"]
@@ -1651,12 +1678,11 @@ def c4_kernels(dev, rehearsal: bool, seed: int, runs: dict, chunk_us: dict) -> d
             f"match={res['match']} max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
             f"kernel_ms={res['kernel_ms']:.4f} plain_ms={res['plain_ms']:.4f} "
             f"bound_ms={res['bound'][0]:.4f}")
-    out = {"roi_align@c4": entry(fwd), "roi_align_bwd@c4": entry(bwd)}
+    out = {"roi_align@c4": kernel_entry(fwd), "roi_align_bwd@c4": kernel_entry(bwd)}
 
     # B3 and B4 at the serving pre-NMS top-n of r101_coco's canvas: its C4
     # anchor grid, RPN-like bf16 scores (full of ties) and small deltas.
     cfg = runs["r101_coco"]["train"]["cfg"]
-    rpn = cfg.model.rpn
     (h, w), b = cfg.data.image_size, 2
     anchors = level_anchors(cfg.model, {4: torch.empty((1, h >> 4, w >> 4, 1), device=dev)})[4]
     g = torch.Generator().manual_seed(seed + 11)
@@ -1664,7 +1690,27 @@ def c4_kernels(dev, rehearsal: bool, seed: int, runs: dict, chunk_us: dict) -> d
         .to(torch.bfloat16).to(dev)
     deltas = (0.2 * torch.randn((b, len(anchors), 4), generator=g)).to(torch.bfloat16).to(dev)
     image_hw = torch.tensor([[h, w], [h - 176, w - 320]], dtype=torch.float32, device=dev)
-    pre, thresh = rpn.test_pre_nms_top_n, rpn.nms_threshold
+    found = proposal_kernels(dev, rehearsal, scores, deltas, anchors, image_hw, cfg.model.rpn,
+                             cfg.model.rpn.test_pre_nms_top_n, 1, chunk_us, "c4")
+    out.update({f"{k}@c4": v for k, v in found.items()})
+    return out
+
+
+def proposal_kernels(dev, rehearsal: bool, scores, deltas, anchors, image_hw, rpn, pre: int,
+                     nms_rows: int, chunk_us: dict, tag: str) -> dict:
+    """B3 at L = 1 on the batch and B4 on one level for its first
+    ``nms_rows`` images, at pre-NMS top-n ``pre`` of one level's RPN
+    outputs (scores (B, A), deltas (B, A, 4), anchors (A, 4)), each
+    bitwise against its plain version and timed as in phase 3.
+    ``chunk_us``: phase 3's sweep chunk step of B3 and B4, for their
+    sequential floor; ``tag`` names the entries in the log."""
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels, fused_middle_levels_plain
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_keep_sorted_cuda, nms_keep_sorted_plain
+    from mx_rcnn_tpu_torch.ops.proposals import _pre_nms_candidates, _topk_candidates
+
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    b, thresh, out = scores.shape[0], rpn.nms_threshold, {}
     ts, td, ta = _topk_candidates(scores, deltas, anchors, pre)
     margs = (ta[:, None].float(), td[:, None].float(), ts[:, None].float(), image_hw,
              rpn.min_size, thresh)
@@ -1672,7 +1718,7 @@ def c4_kernels(dev, rehearsal: bool, seed: int, runs: dict, chunk_us: dict) -> d
     same = all(torch.equal(x, y) for x, y in zip(got, want))
     k = margs[2].shape[-1]
     flops = 40 * margs[2].numel() + IOU_FLOPS * greedy_pairs(got[2], torch.isfinite(got[1]))
-    out["fused_middle@c4"] = dict(
+    out["fused_middle"] = dict(
         match=same, max_abs_err=float((got[0] - want[0]).abs().max()),
         ms=clock.ms(lambda: fused_middle_levels(*margs), iters),
         kernel_ms=clock.kernel_ms(lambda: fused_middle_levels(*margs)),
@@ -1681,12 +1727,14 @@ def c4_kernels(dev, rehearsal: bool, seed: int, runs: dict, chunk_us: dict) -> d
         extra=dict(chunk_steps=-(-k // 64),
                    sequential_floor_ms=1e-3 * chunk_us["fused_middle"] * -(-k // 64)),
         shape=f"B={b} L=1 k={k} (two launches a call)")
-    dense = _pre_nms_candidates(scores[:1], deltas[:1], anchors, image_hw[:1], pre, rpn.min_size)
+    rows = slice(0, nms_rows)
+    dense = _pre_nms_candidates(scores[rows], deltas[rows], anchors, image_hw[rows], pre,
+                                rpn.min_size)
     order = torch.argsort(-dense[1], dim=-1, stable=True)
     nargs = (torch.gather(dense[0], 1, order[..., None].expand(*order.shape, 4)).contiguous(),
              torch.gather(torch.isfinite(dense[1]), 1, order).contiguous(), thresh)
     k1, k2 = nms_keep_sorted_cuda(*nargs), nms_keep_sorted_plain(*nargs)
-    out["nms@c4"] = dict(
+    out["nms"] = dict(
         match=torch.equal(k1, k2), max_abs_err=float(not torch.equal(k1, k2)),
         ms=clock.ms(lambda: nms_keep_sorted_cuda(*nargs), iters),
         kernel_ms=clock.kernel_ms(lambda: nms_keep_sorted_cuda(*nargs)),
@@ -1694,10 +1742,9 @@ def c4_kernels(dev, rehearsal: bool, seed: int, runs: dict, chunk_us: dict) -> d
         bound=bound(nbytes(nargs[0], nargs[1], k1), IOU_FLOPS * greedy_pairs(k1, nargs[1])),
         extra=dict(chunk_steps=-(-nargs[0].shape[-2] // 64),
                    sequential_floor_ms=1e-3 * chunk_us["nms"] * -(-nargs[0].shape[-2] // 64)),
-        shape=f"B=1 L=1 n={nargs[0].shape[-2]} (one launch)")
-    for key in ("fused_middle@c4", "nms@c4"):
-        r = out[key]
-        log(f"[kernel:{key}] {r['shape']}: match={r['match']} ms={r['ms']:.4f} "
+        shape=f"B={nms_rows} L=1 n={nargs[0].shape[-2]} (one launch)")
+    for key, r in out.items():
+        log(f"[kernel:{key}@{tag}] {r['shape']}: match={r['match']} ms={r['ms']:.4f} "
             f"kernel_ms={r['kernel_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}); {r['extra']['chunk_steps']} "
             f"chunk steps, sequential floor {r['extra']['sequential_floor_ms']:.4f} ms")
@@ -1754,19 +1801,477 @@ def c4_phase(dev, rehearsal: bool, seed: int, chunk_us: dict) -> dict:
     return {"paths": paths, "kernels": kernels}
 
 
+# Phase 7d: Fast R-CNN mode and the 4-step alternate schedule of
+# vgg16_voc07 at full width.
+FAST_CONFIG = "vgg16_voc07"
+# What each phase of the alternate schedule freezes besides VGG's groups
+# 1-2, as port parameter-name prefixes.
+VGG_FROZEN = ("backbone.group1.", "backbone.group2.")
+PHASE_FROZEN = {"rpn1": ("box_head.",), "rcnn1": ("rpn_head.",),
+                "rpn2": ("backbone.", "box_head."), "rcnn2": ("backbone.", "rpn_head.")}
+RPN_METRICS = ("RPNAcc", "RPNLogLoss", "RPNL1Loss")
+
+
+def fast_overrides(rehearsal: bool, seed: int) -> list[str]:
+    """Phase 7d's settings of ``vgg16_voc07``: the compact RPN loss, a log
+    line a step, flips, the seed; the rehearsal's C4 cuts."""
+    return ["model.rpn.loss_impl=compact", f"train.seed={seed}", "train.log_every=1",
+            "data.flip=true", *c4_overrides(rehearsal)]
+
+
+def voc_like_records(rehearsal: bool, seed: int, split: str) -> list:
+    """Eight uint8 records at VOC's own image sizes, three of them
+    portrait (a quarter of each side in the rehearsal), rendered like the
+    synthetic set over VOC's 20 classes, ids ``<split><i>``."""
+    import dataclasses
+
+    from mx_rcnn_tpu_torch.data.datasets import SyntheticDataset
+
+    sizes = [(375, 500), (500, 375), (333, 500), (281, 500), (500, 333), (375, 500),
+             (334, 500), (500, 375)]
+    out = []
+    for i, (h, w) in enumerate(sizes):
+        hw = (h // 4, w // 4) if rehearsal else (h, w)
+        ds = SyntheticDataset(image_hw=hw, num_classes=21, seed=seed + 7 * (split == "val"))
+        out.append(dataclasses.replace(ds.record(i), image_id=f"{split}{i}"))
+    return out
+
+
+@contextlib.contextmanager
+def voc_like_roidb(rehearsal: bool, seed: int):
+    """Every dataset build (``data/datasets.py::build_dataset``, as
+    ``train/loop.py`` and ``cli/eval_cli.py`` look it up) returns the
+    VOC-like train or val records by split: no VOC tree is on the card's
+    machine, and decoding its JPEGs would need PIL.  Yields the records."""
+    import types
+
+    from mx_rcnn_tpu_torch.data import datasets
+    from mx_rcnn_tpu_torch.train import loop
+
+    roidbs = {split: voc_like_records(rehearsal, seed, split) for split in ("train", "val")}
+
+    def build(cfg, split=None, train=True):
+        split = split or (cfg.train_split if train else cfg.val_split)
+        records = roidbs["train" if split == cfg.train_split else "val"]
+        return types.SimpleNamespace(roidb=lambda: list(records))
+
+    saved = datasets.build_dataset, loop.build_dataset
+    datasets.build_dataset = loop.build_dataset = build
+    try:
+        yield roidbs
+    finally:
+        datasets.build_dataset, loop.build_dataset = saved
+
+
+def check_phase(label: str, phase: str, state, start: dict, lines: list, steps: int,
+                external: bool, require_moved: bool) -> tuple[int, int]:
+    """One phase of the alternate schedule: ``steps`` log lines counting
+    from 1, every number finite and ``nonfinite`` 0, the state's and the
+    optimizer's step at ``steps``, the RPN metrics of a Fast R-CNN phase
+    exact zeros, the phase's frozen groups (and VGG's groups 1-2) out of
+    the optimizer and bitwise equal to ``start``; with ``require_moved``
+    every other parameter moved.  Returns (frozen, moved) counts."""
+    metrics = [m for _, m in lines]
+    bad = [i for i, m in enumerate(metrics) if m["nonfinite"] != 0.0 or not finite_line(m)]
+    if [m["step"] for m in metrics] != list(range(1, steps + 1)) or bad or \
+            state.step != steps or state.optimizer.step != steps:
+        raise AssertionError(f"{label}:{phase}: steps {[m['step'] for m in metrics]}, state "
+                             f"{state.step}, optimizer {state.optimizer.step}, non-finite {bad}")
+    if external and phase.startswith("rcnn") and any(m[k] != 0.0 for m in metrics
+                                                     for k in RPN_METRICS):
+        raise AssertionError(f"{label}:{phase}: RPN metrics not zero in Fast R-CNN mode")
+    frozen_prefixes = VGG_FROZEN + PHASE_FROZEN[phase]
+    wrong, n_frozen, n_moved = [], 0, 0
+    for name, p in state.model.named_parameters():
+        frozen = name.startswith(frozen_prefixes)
+        same = torch.equal(p.detach(), start[name])
+        n_frozen += frozen
+        n_moved += not same
+        if frozen == p.requires_grad or (frozen and not same) or \
+                (require_moved and not frozen and same):
+            wrong.append(name)
+    if wrong:
+        raise AssertionError(f"{label}:{phase}: {len(wrong)} parameters frozen or moved against "
+                             f"the schedule, e.g. {wrong[:4]}")
+    return n_frozen, n_moved
+
+
+@contextlib.contextmanager
+def alternate_spy(dev, label: str, counters: dict, store: dict, require_moved: bool):
+    """Watch the alternate schedule through the functions ``alternate_cli``
+    looks up at each call: ``train/loop.py``'s ``build_all`` (each phase's
+    start parameters and first batch) and ``train`` (its log lines, held
+    by :func:`check_phase` with ``require_moved``; rcnn1's last step's B1 and B2 inputs into
+    ``store["pool"]`` and ``store["bwd"]``), and ``cli/eval_cli.py``'s
+    ``dump_proposals`` (seconds and images into ``store["dumps"]``).
+    Prints each phase's seconds a step after the first, ``data_stall_ms``,
+    peak memory, total seconds and launches, then deletes its
+    checkpoints (a VGG-16 state with momentum is 1.1 GB)."""
+    import shutil
+
+    from mx_rcnn_tpu_torch.cli import eval_cli
+    from mx_rcnn_tpu_torch.train import loop
+
+    real = {"build_all": loop.build_all, "train": loop.train, "dump": eval_cli.dump_proposals}
+    built = []
+
+    def build_all(cfg, *args, **kw):
+        model, opt, state, step_fn, global_batch = real["build_all"](cfg, *args, **kw)
+        if cfg.name.rsplit("_", 1)[-1] not in PHASE_FROZEN:   # the combined state's build
+            return model, opt, state, step_fn, global_batch
+        first = []
+
+        def step(state, batch):
+            if not first:
+                first.append(batch)
+            return step_fn(state, batch)
+
+        built.append({"start": {n: p.detach().clone() for n, p in model.named_parameters()},
+                      "first": first})
+        return model, opt, state, step, global_batch
+
+    def train(cfg, *args, **kw):
+        phase = cfg.name.rsplit("_", 1)[1]
+        lines = []
+        kw["log"] = lambda line: lines.append((time.perf_counter(), json.loads(line)))
+        before = {k: fn.launches for k, fn in counters.items()}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if phase == "rcnn1":
+                stack.enter_context(captured_pool(store["pool"]))
+                stack.enter_context(captured_backward(store["bwd"], lambda shapes: True))
+            state = real["train"](cfg, *args, **kw)
+        total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else \
+            float("nan")
+        launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+        rec = built[-1]
+        external = kw.get("proposals_path") is not None
+        n_frozen, n_moved = check_phase(label, phase, state, rec["start"], lines, kw["steps"],
+                                        external, require_moved)
+        if phase == "rpn1":
+            store["rpn1"] = {"start": rec["start"], "state": state}
+        elif phase == "rcnn1":
+            # The reference's schedule restarts rcnn1 from the initial
+            # weights, as rpn1 started; the in-graph one continues rpn1.
+            rpn1 = store.pop("rpn1")
+            want = rpn1["start"] if external else dict(rpn1["state"].model.named_parameters())
+            if not all(torch.equal(rec["start"][n], want[n]) for n in want):
+                raise AssertionError(f"{label}:rcnn1 did not start from "
+                                     f"{'the initial weights' if external else 'rpn1'}")
+        times = [t for t, _ in lines]
+        s_step = (times[-1] - times[0]) / max(len(times) - 1, 1)
+        stall = float(np.mean([m["data_stall_ms"] for _, m in lines[1:]] or [float("nan")]))
+        log(f"[fast:{label}:{phase}] {len(lines)} steps in {total:.2f} s (model build, "
+            f"checkpoints and the rendering included); after the first: {s_step:.4f} s a step "
+            f"with the batch assembly, data_stall_ms {stall:.2f}; peak memory {peak:.2f} GiB; "
+            f"loss {lines[0][1]['loss']:.4f} -> {lines[-1][1]['loss']:.4f}; frozen {n_frozen} "
+            f"unchanged, {n_moved} of {len(state.optimizer.names)} trainable moved; external "
+            f"proposals {external}; launches "
+            f"{launches}")
+        store["phases"].append({"phase": phase, "first": rec["first"][0], "lr": lines[0][1]["lr"],
+                                "s_per_step": s_step, "data_stall_ms": stall, "peak_gib": peak,
+                                "seconds": total})
+        rec["start"] = None
+        shutil.rmtree(f"{kw['workdir']}/{cfg.name}/ckpt", ignore_errors=True)
+        return state
+
+    def dump(cfg, out_path, *args, **kw):
+        t0 = time.perf_counter()
+        out = real["dump"](cfg, out_path, *args, **kw)
+        store["dumps"].append({"path": out_path, "images": len(out),
+                               "seconds": time.perf_counter() - t0})
+        return out
+
+    loop.build_all, loop.train, eval_cli.dump_proposals = build_all, train, dump
+    try:
+        yield store
+    finally:
+        loop.build_all, loop.train, eval_cli.dump_proposals = (
+            real["build_all"], real["train"], real["dump"])
+
+
+def ext_rois_numpy(cfg, rec, proposals: dict, flip: bool, num: int):
+    """A record's external rois recomputed in numpy from a proposal map:
+    the flip in original coordinates, a stable sort by score, the best
+    ``num``, the letterbox scale, clipped to the resized image,
+    zero-padded -> (rois (num, 4) float32, valid (num,) bool)."""
+    from mx_rcnn_tpu_torch.data.loader import record_scale
+
+    boxes = np.asarray(proposals[rec.image_id]["boxes"], np.float32)
+    scores = np.asarray(proposals[rec.image_id]["scores"], np.float32)
+    if flip:
+        boxes = np.stack([rec.width - 1 - boxes[:, 2], boxes[:, 1], rec.width - 1 - boxes[:, 0],
+                          boxes[:, 3]], axis=1)
+    scale = record_scale(cfg.data, rec)
+    top = boxes[np.argsort(-scores, kind="mergesort")[:num]] * scale
+    nh, nw = int(round(rec.height * scale)), int(round(rec.width * scale))
+    top[:, 0::2] = np.clip(top[:, 0::2], 0.0, nw - 1.0)
+    top[:, 1::2] = np.clip(top[:, 1::2], 0.0, nh - 1.0)
+    rois, valid = np.zeros((num, 4), np.float32), np.zeros((num,), bool)
+    rois[:len(top)], valid[:len(top)] = top, True
+    return rois, valid
+
+
+def check_dumps(label: str, cfg, dumps: list, records: list) -> None:
+    """Each dump holds one entry a record, every box inside its original
+    image (the resized image's extent over the scale: a row rounded up in
+    the resize reaches a fraction of a pixel past the last one); prints
+    each dump's images a second."""
+    from mx_rcnn_tpu_torch.data.loader import load_proposals, record_scale
+
+    for d in dumps:
+        props = load_proposals(d["path"])
+        if sorted(props) != sorted(r.image_id for r in records):
+            raise AssertionError(f"{label}: {d['path']} holds {sorted(props)}")
+        for rec in records:
+            b = props[rec.image_id]["boxes"]
+            scale = record_scale(cfg.data, rec)
+            w, h = (np.float32(round(n * scale)) / np.float32(scale)
+                    for n in (rec.width, rec.height))
+            inside = (len(b) > 0 and (b >= 0).all() and (b[:, 2] >= b[:, 0]).all()
+                      and (b[:, 3] >= b[:, 1]).all() and (b[:, [0, 2]] <= w).all()
+                      and (b[:, [1, 3]] <= h).all())
+            if not inside:
+                raise AssertionError(f"{label}: {rec.image_id}'s proposals leave its image or "
+                                     "are missing")
+        n = min(len(p["scores"]) for p in props.values())
+        log(f"[fast:{label}:dump] {os.path.basename(d['path'])}: {d['images']} images in "
+            f"{d['seconds']:.2f} s, {d['images'] / d['seconds']:.2f} img/s (model build "
+            f"included); at least {n} proposals an image, every box inside its image")
+
+
+def fast_rcnn_phase(dev, rehearsal: bool, seed: int, chunk_us: dict) -> dict:
+    """Phase 7d: Fast R-CNN mode and the alternate schedule of
+    ``vgg16_voc07`` at full width (608x1024, batch 1, fc6/fc7 4096 wide,
+    21 classes, 6000/2000 proposals in training, 6000/300 in test, 128
+    rois an image), random weights from the seed, on eight VOC-like train
+    and eight val records (:func:`voc_like_roidb`, flips on), through the
+    port's entry points:
+
+    (a) ``alternate_cli.main --external-proposals``, 3 steps a phase, B3
+    (``rpn.fused_middle``): rpn1, a dump, rcnn1 on its pkl (the RPN out of
+    the graph), rpn2, a dump, rcnn2, the final checkpoint and the eval.
+    Each phase held by :func:`check_phase`; rcnn1 restarts from the
+    initial weights; each dump one entry a train record, inside its
+    image; rcnn1's first batch carries exactly :func:`ext_rois_numpy`'s
+    rois; the final checkpoint passes its manifest check; metrics finite.
+    (b) ``alternate_train``, the default in-graph schedule, 2 phases of 2
+    steps, held the same way (rcnn1 continues rpn1; a parameter that no
+    update moves in float32 is not required to move).  (c) The
+    ``vgg_fast_rcnn.sh`` pipe on (a)'s final checkpoint, restored (classes
+    1-4 favoured as in phase 7c, so that there are detections) and saved:
+    ``eval_cli.main --proposals --proposals-split val`` under
+    ``rpn.nms_impl=pallas`` (B4), then ``--from-proposals`` (B1, metrics
+    finite), then its first batch in float32 through the kernels and the
+    plain path, identical.  Launch counts set to 0 before each path and
+    read after; B1, B2 and B3 must launch in (a) and (b), B4 and B1 in
+    (c).  (d) :func:`fast_kernels`: the ``@fast`` entries."""
+    import shutil
+
+    from mx_rcnn_tpu_torch.cli import alternate_cli, eval_cli
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.data.loader import DetectionLoader, load_proposals
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
+    )
+    from mx_rcnn_tpu_torch.train import checkpoint as ckpt
+    from mx_rcnn_tpu_torch.train.loop import build_all
+
+    counters = {"roi_align": multilevel_roi_align_cuda, "fused_middle": fused_middle_levels,
+                "nms": nms_mask_cuda, "roi_align_bwd": multilevel_roi_align_bwd_cuda}
+    sets = fast_overrides(rehearsal, seed)
+    cfg = apply_overrides(get_config(FAST_CONFIG), sets)
+    common = ["--config", FAST_CONFIG, "--device", dev.type, *sum((["--set", o] for o in sets), [])]
+    work = os.path.join(ROOT, "runs", f"chip_smoke_fast_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    paths, t_phase = {}, time.perf_counter()
+
+    def run(path: str, need: tuple, fn):
+        """``fn()`` with the counts set to 0 just before and read just
+        after, added to ``path``'s; each kernel of ``need`` must launch."""
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        total = paths.setdefault(path, {"launches": dict.fromkeys(counters, 0)})["launches"]
+        for k, v in got.items():
+            total[k] += v
+        log(f"[fast:{path}] {wall:.2f} s; launches {got}")
+        missing = [k for k in need if got[k] < 1]
+        if missing and not rehearsal:
+            raise AssertionError(f"fast {path}: kernels not launched: {missing}")
+        return out
+
+    try:
+        with voc_like_roidb(rehearsal, seed) as roidbs:
+            # (a) The reference's schedule.
+            alt = {"phases": [], "dumps": [], "pool": [], "bwd": []}
+            with alternate_spy(dev, "external", counters, alt, require_moved=True):
+                metrics = run("fast_alt", ("roi_align", "roi_align_bwd", "fused_middle"),
+                              lambda: alternate_cli.main([
+                                  *common, "--workdir", os.path.join(work, "a"),
+                                  "--phase-steps", "3", "--external-proposals",
+                                  "--set", "model.rpn.fused_middle=true"]))
+            log(f"[fast:external] metrics {json.dumps(metrics, sort_keys=True)}")
+            if [p["phase"] for p in alt["phases"]] != list(PHASE_FROZEN) or len(alt["dumps"]) != 2:
+                raise AssertionError(f"fast external: phases {alt['phases']}, dumps {alt['dumps']}")
+            if len({p["lr"] for p in alt["phases"]}) != 1 or not metrics or \
+                    not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError("fast external: a phase's schedule did not restart, or "
+                                     "the metrics are not finite")
+            check_dumps("external", cfg, alt["dumps"], roidbs["train"])
+            # rcnn1's first batch against the pkl, recomputed in numpy.
+            probe = DetectionLoader(roidbs["train"], cfg.data, cfg.train.per_device_batch, "cpu",
+                                    seed=cfg.train.seed)
+            idxs, flips = next(probe._local_spec_stream(0))
+            props = load_proposals(alt["dumps"][0]["path"])
+            num = cfg.model.rpn.train_post_nms_top_n
+            want = [ext_rois_numpy(cfg, roidbs["train"][j], props, f, num)
+                    for j, f in zip(idxs, flips)]
+            first = alt["phases"][1]["first"]
+            same = (np.array_equal(first.ext_rois.cpu().numpy(), np.stack([r for r, _ in want]))
+                    and np.array_equal(first.ext_valid.cpu().numpy(),
+                                       np.stack([v for _, v in want])))
+            log(f"[fast:external:rcnn1] first batch (records {idxs}, flips {flips}): ext_rois "
+                f"{tuple(first.ext_rois.shape)}, {int(first.ext_valid.sum())} valid, equal to "
+                f"the numpy recompute from proposals_rpn1.pkl: {same}")
+            if not same:
+                raise AssertionError("fast external: rcnn1's ext_rois differ from the pkl's")
+            final_dir = os.path.join(work, "a", FAST_CONFIG, "ckpt")
+            step = ckpt.latest_step(final_dir)
+            verified = ckpt.verify_manifest(final_dir, step)
+            log(f"[fast:external] final checkpoint step {step}: manifest {verified}")
+            if verified != (True, "ok") or step != 3:
+                raise AssertionError("fast external: the final checkpoint does not verify")
+            # (c)'s checkpoint: the final one, restored as eval_cli restores
+            # it, with classes 1-4 favoured as in phase 7c (three steps leave
+            # the head sure of the background) so that there are detections.
+            _, _, state, _, _ = build_all(cfg, dev)
+            ckpt.restore_checkpoint(final_dir, state)
+            with torch.no_grad():
+                head = state.model.box_head.cls_score
+                head.weight[1:5] = head.weight[0]
+                head.bias[1:5] = head.bias[0] + 1.0
+            ckpt_c = os.path.join(work, "c", "ckpt")
+            ckpt.save_checkpoint(ckpt_c, state)
+            shutil.rmtree(os.path.join(work, "a"), ignore_errors=True)
+
+            # (b) The default in-graph schedule, two phases.
+            ingraph = {"phases": [], "dumps": [], "pool": [], "bwd": []}
+            with alternate_spy(dev, "in_graph", counters, ingraph, require_moved=False):
+                run("fast_ingraph", ("roi_align", "roi_align_bwd", "fused_middle"),
+                    lambda: alternate_cli.alternate_train(
+                        apply_overrides(cfg, ["model.rpn.fused_middle=true"]), phase_steps=2,
+                        workdir=os.path.join(work, "b"), num_phases=2, device=dev))
+            if [p["phase"] for p in ingraph["phases"]] != ["rpn1", "rcnn1"]:
+                raise AssertionError(f"fast in_graph: phases {ingraph['phases']}")
+            check_dumps("in_graph", cfg, ingraph["dumps"], roidbs["train"])
+            shutil.rmtree(os.path.join(work, "b"), ignore_errors=True)
+
+            # (c) vgg_fast_rcnn.sh on (a)'s final checkpoint.
+            pkl = os.path.join(work, "c", "val_proposals.pkl")
+            t0 = time.perf_counter()
+            run("fast_pipe", ("nms",), lambda: eval_cli.main([
+                *common, "--ckpt", ckpt_c, "--proposals", pkl, "--proposals-split", "val",
+                "--set", "model.rpn.nms_impl=pallas"]))
+            check_dumps("pipe", cfg, [{"path": pkl, "images": len(roidbs["val"]),
+                                  "seconds": time.perf_counter() - t0}], roidbs["val"])
+            t0 = time.perf_counter()
+            scored = run("fast_pipe", ("roi_align",), lambda: eval_cli.main([
+                *common, "--ckpt", ckpt_c, "--from-proposals", pkl]))
+            n = len(roidbs["val"])
+            log(f"[fast:pipe] --from-proposals: {n} images, {n / (time.perf_counter() - t0):.2f} "
+                f"img/s end to end (restore included); metrics {json.dumps(scored, sort_keys=True)}")
+            if not scored or not all(np.isfinite(v) for v in scored.values()):
+                raise AssertionError("fast pipe: non-finite --from-proposals metrics")
+            first_batch_reference(dev, cfg, state.model.state_dict(), roidbs["val"],
+                                  max(cfg.model.test.per_device_batch, 1), "fast:pipe",
+                                  proposals=load_proposals(pkl))
+            kernels = fast_kernels(dev, rehearsal, cfg, state.model, alt, roidbs["train"],
+                                   chunk_us)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    per_phase = {p["phase"]: round(p["s_per_step"], 4) for p in alt["phases"]}
+    log(f"[fast] phase 7d in {time.perf_counter() - t_phase:.2f} s; external schedule seconds "
+        f"a step after the first {per_phase}, peak memory "
+        f"{max(p['peak_gib'] for p in alt['phases']):.2f} GiB")
+    return {"paths": paths, "kernels": kernels}
+
+
+def fast_kernels(dev, rehearsal: bool, cfg, model, alt: dict, records: list,
+                 chunk_us: dict) -> dict:
+    """Phase 7d (d): B1 on rcnn1's last step (rois sampled from external
+    proposals; bf16 within one ulp, f32 bitwise) and B2 on its backward,
+    each against its plain version and timed as in phase 3; B3 and B4 on
+    the final state's RPN outputs over the first dump batch of train
+    records, at the train pre-NMS top-n (:func:`proposal_kernels`): the
+    kernels line's ``@fast`` entries."""
+    from mx_rcnn_tpu_torch.data.loader import eval_batches
+    from mx_rcnn_tpu_torch.detection.graph import level_anchors, prep_images
+
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    (pyr, rois), _ = alt["pool"]
+    fwd = {}
+    for dt, case in ((torch.bfloat16, "rcnn1_step"), (torch.float32, "f32_rcnn1_step")):
+        res = hold_fwd({l: f.to(dt) for l, f in pyr.items()}, rois, 7, 2, clock, iters,
+                       plain_iters)
+        if dt == torch.float32:
+            res["match"] = res["match"] and res["max_abs_err"] == 0.0
+        fwd[case] = res
+        log(f"[kernel:roi_align@fast:{case}] {res['shape']} map {tuple(pyr[4].shape[1:3])}: "
+            f"match={res['match']} max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
+            f"kernel_ms={res['kernel_ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"bound_ms={res['bound'][0]:.4f}")
+    args = alt["bwd"][0]
+    bwd = hold_bwd(args, clock, iters, plain_iters)
+    log(f"[kernel:roi_align_bwd@fast:rcnn1_step] {bwd['shape']} map {args[0][4]}: "
+        f"match={bwd['match']} max_abs_err={bwd['max_abs_err']:.3g} ms={bwd['ms']:.4f} "
+        f"kernel_ms={bwd['kernel_ms']:.4f} plain_ms={bwd['plain_ms']:.4f} "
+        f"bound_ms={bwd['bound'][0]:.4f}")
+    out = {"roi_align@fast": kernel_entry(fwd),
+           "roi_align_bwd@fast": kernel_entry({"rcnn1_step": bwd})}
+    batch, _ = next(eval_batches(records, cfg.data, max(cfg.model.test.per_device_batch, 1), dev))
+    with torch.inference_mode():
+        feats = model.features(prep_images(batch.images, (cfg.data.pixel_mean,
+                                                          cfg.data.pixel_std)))
+        logits, deltas = model.rpn(feats)[4]
+        anchors = level_anchors(cfg.model, feats)[4]
+    rpn = cfg.model.rpn
+    found = proposal_kernels(dev, rehearsal, torch.sigmoid(logits), deltas, anchors,
+                             batch.image_hw, rpn, rpn.train_pre_nms_top_n, logits.shape[0],
+                             chunk_us, "fast")
+    out.update({f"{k}@fast": v for k, v in found.items()})
+    return out
+
+
 # The kernels of the main paths: source, the TPU kernel it replaces, and
 # the paths that launch it.  (``roi_align_f32`` and ``roi_align_bwd_f32``
 # are checked as well, but the paths run bf16, so they are no entries of
 # their own.)
+FAST_PATHS = {"roi_align": ("fast_alt", "fast_ingraph", "fast_pipe"),
+              "roi_align_bwd": ("fast_alt", "fast_ingraph"),
+              "fused_middle": ("fast_alt", "fast_ingraph"), "nms": ("fast_pipe",)}
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
-                  ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval")),
+                  ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval",
+                   *FAST_PATHS["roi_align"])),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
-                      "mx_rcnn_tpu/ops/pallas/roi_align.py:623", ("train", "roidb", "c4_train")),
+                      "mx_rcnn_tpu/ops/pallas/roi_align.py:623",
+                      ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"])),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
-                     "mx_rcnn_tpu/ops/pallas/middle.py:145", ("full", "c4_full")),
+                     "mx_rcnn_tpu/ops/pallas/middle.py:145",
+                     ("full", "c4_full", *FAST_PATHS["fused_middle"])),
     "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75",
-            ("proposals", "c4_proposals")),
+            ("proposals", "c4_proposals", *FAST_PATHS["nms"])),
 }
 # Phase c4's entries: the same kernels at the single-level C4 shapes,
 # counted over phase c4's paths alone.
@@ -1776,6 +2281,9 @@ KERNELS.update({
     "fused_middle@c4": (*KERNELS["fused_middle"][:2], ("c4_full",)),
     "nms@c4": (*KERNELS["nms"][:2], ("c4_proposals",)),
 })
+# Phase 7d's entries: the kernels on the Fast R-CNN and alternate paths'
+# inputs, counted over phase 7d's paths alone.
+KERNELS.update({f"{k}@fast": (*KERNELS[k][:2], on) for k, on in FAST_PATHS.items()})
 
 
 PKG = "mx_rcnn_tpu_torch"
@@ -1937,11 +2445,15 @@ def main() -> int:
     c4 = c4_phase(dev, args.cpu_rehearsal, args.seed,
                   {k: kernels[k]["extra"]["chunk_step_us"] for k in ("fused_middle", "nms")})
     paths.update(c4["paths"])
+    fast = fast_rcnn_phase(dev, args.cpu_rehearsal, args.seed,
+                           {k: kernels[k]["extra"]["chunk_step_us"] for k in ("fused_middle", "nms")})
+    paths.update(fast["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)
     parent = parent_phase(dev, args.parent, kernels) if args.parent else {}
     kernels.update(c4["kernels"])
+    kernels.update(fast["kernels"])
 
     line = []
     for name, (source, replaces, on) in KERNELS.items():

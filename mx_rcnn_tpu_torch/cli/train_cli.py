@@ -14,8 +14,12 @@ over the val split prints the metrics, one ``name = value`` line each.
 schedule (``--strict-resume``: a config drift from the run's
 ``config.json`` is an error).  SIGTERM or SIGINT drain the step in
 flight, checkpoint and exit with code 75 (requeue with ``--resume``).
-``--device`` defaults to the card; without one it raises rather than fall
-back to the CPU (``--device cpu`` asks for the CPU).
+``--proposals PKL`` trains on that proposal pkl's boxes (``eval_cli
+--proposals --proposals-split train``) instead of the RPN's; with ``--set
+model.rpn.loss_weight=0`` the RPN leaves the graph (Fast R-CNN mode, the
+reference's ``train_rcnn.py``).  ``--device`` defaults to the card;
+without one it raises rather than fall back to the CPU (``--device cpu``
+asks for the CPU).
 """
 
 from __future__ import annotations
@@ -33,8 +37,7 @@ log = logging.getLogger("mx_rcnn_tpu_torch")
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
-        epilog="Not ported: --proposals (Fast R-CNN training on external proposals) and "
-               "--profile (a traced window of steps).")
+        epilog="Not ported: --profile (a traced window of steps).")
     p.add_argument("--config", default="r50_fpn_coco", choices=available_configs())
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="config override, e.g. model.rpn.loss_impl=compact (repeatable)")
@@ -50,6 +53,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-eval", action="store_true", help="skip the final evaluation pass")
     p.add_argument("--pretrained", default=None, metavar="PTH",
                    help="torchvision-layout ResNet or VGG-16 .pth to seed the backbone")
+    p.add_argument("--proposals", default=None, metavar="PKL",
+                   help="train the box head on this external proposal pkl (eval_cli "
+                        "--proposals) instead of the RPN's; pair with --set "
+                        "model.rpn.loss_weight=0 to drop the RPN from the graph")
     return p.parse_args(argv)
 
 
@@ -66,7 +73,7 @@ def main(argv=None) -> dict:
 
     state = train(cfg, steps=args.steps, device=args.device, workdir=cfg.workdir,
                   resume=args.resume, pretrained=args.pretrained,
-                  strict_resume=args.strict_resume)
+                  strict_resume=args.strict_resume, proposals_path=args.proposals)
     metrics: dict = {"final_step": state.step}
     if not args.no_eval:
         from mx_rcnn_tpu_torch.cli.eval_cli import run_eval

@@ -1,8 +1,9 @@
 """The Batch contract between the input side and the detection graph
 (copy of ``mx_rcnn_tpu/data/batch.py``).  Fields are torch tensors on the
 device the graph runs on; serving fills only ``images`` and ``image_hw``.
-The JAX batch's mask and external-proposal fields belong to parts not
-ported yet (Mask R-CNN, Fast R-CNN mode)."""
+``ext_rois``/``ext_valid`` carry external proposals (Fast R-CNN mode:
+``detection/graph.py`` samples or scores them in place of the RPN's).
+The JAX batch's mask field belongs to Mask R-CNN, which is not ported."""
 
 from __future__ import annotations
 
@@ -20,3 +21,8 @@ class Batch(NamedTuple):
     # COCO crowd / VOC difficult regions: never fg, and anchors/rois covering
     # them are excluded from bg sampling.  Disjoint from gt_valid slots.
     gt_ignore: Optional[Any] = None   # (B, G) bool
+    # External proposals in letterboxed-image coordinates, score-descending,
+    # zero-padded (the reference's ROIIter / train_rcnn path).  None = the
+    # RPN's in-graph proposals.
+    ext_rois: Optional[Any] = None    # (B, R, 4) float32
+    ext_valid: Optional[Any] = None   # (B, R) bool

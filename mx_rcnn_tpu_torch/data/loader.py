@@ -18,8 +18,12 @@ before its resize.
 Training draws batches from :class:`DetectionLoader`, whose schedule
 (epoch shuffle, aspect grouping, flips) is the JAX loader's, bit for bit;
 eval runs one pass in the JAX loader's eval order (:func:`eval_index_specs`).
+Both take external proposals (:func:`load_proposals`'s pkl) for Fast
+R-CNN mode: each record's boxes ride the gt boxes' geometry (flip in
+original coordinates, the letterbox scale), best ``num_proposals`` by
+score, clipped to the resized image and zero-padded with ``ext_valid``.
 Not ported: the prefetch thread, the thread pool, the input service, the
-tensor cache, external proposals, masks and the chaos hooks.
+tensor cache, masks and the chaos hooks.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import pickle
 import time
 from typing import Callable, Iterator, Optional, Sequence
 
@@ -37,9 +42,63 @@ from mx_rcnn_tpu_torch.config import DataConfig
 from mx_rcnn_tpu_torch.data.batch import Batch
 from mx_rcnn_tpu_torch.data.cache import quarantine_append
 from mx_rcnn_tpu_torch.data.roidb import RoiRecord
-from mx_rcnn_tpu_torch.data.transforms import hflip, oriented_canvas, resize_linear, resize_scale
+from mx_rcnn_tpu_torch.data.transforms import (
+    flip_boxes,
+    hflip,
+    oriented_canvas,
+    resize_linear,
+    resize_scale,
+)
 
 log = logging.getLogger("mx_rcnn_tpu_torch")
+
+
+def load_proposals(path: str) -> dict:
+    """A proposal pkl (the ``eval_cli --proposals`` format: image_id ->
+    {"boxes": (n, 4) in original image coordinates, "scores": (n,)}),
+    its schema spot-checked on one entry; the rest are read per image."""
+    with open(path, "rb") as f:
+        props = pickle.load(f)
+    if not isinstance(props, dict) or not props:
+        raise ValueError(f"{path}: expected a non-empty image_id->dict map")
+    for key, p in props.items():
+        boxes = np.asarray(p.get("boxes", None))
+        scores = np.asarray(p.get("scores", None))
+        if boxes.ndim != 2 or boxes.shape[1] != 4 or scores.shape != boxes.shape[:1]:
+            raise ValueError(f"{path}: image {key!r} needs boxes (n, 4) + scores (n,), "
+                             f"got {boxes.shape} / {scores.shape}")
+        break
+    return props
+
+
+def require_proposals(roidb: Sequence[RoiRecord], proposals: dict) -> None:
+    """Raise when a record of ``roidb`` has no entry in ``proposals``."""
+    missing = [r.image_id for r in roidb if r.image_id not in proposals]
+    if missing:
+        raise ValueError(f"{len(missing)} roidb image(s) have no proposals "
+                         f"(first: {missing[0]!r})")
+
+
+def external_rois(rec: RoiRecord, proposals: dict, num_proposals: int, flip: bool,
+                  scale: float, th: int, tw: int) -> tuple[np.ndarray, np.ndarray]:
+    """The record's proposals as ``(ext_rois (R, 4) float32, ext_valid
+    (R,) bool)``, R = ``num_proposals``: flipped in original coordinates,
+    the best R by score (a stable sort, ties in file order), scaled,
+    clipped to the resized ``th`` x ``tw`` image, zero-padded."""
+    p = proposals[rec.image_id]
+    pb = np.asarray(p["boxes"], np.float32).reshape(-1, 4)
+    ps = np.asarray(p["scores"], np.float32).reshape(len(pb))
+    if flip:
+        pb = flip_boxes(pb, rec.width)
+    order = np.argsort(-ps, kind="mergesort")[:num_proposals]
+    pb = pb[order] * scale
+    np.clip(pb[:, 0::2], 0.0, tw - 1.0, out=pb[:, 0::2])
+    np.clip(pb[:, 1::2], 0.0, th - 1.0, out=pb[:, 1::2])
+    rois = np.zeros((num_proposals, 4), np.float32)
+    valid = np.zeros((num_proposals,), bool)
+    rois[:len(pb)] = pb
+    valid[:len(pb)] = True
+    return rois, valid
 
 
 def annotation_error(rec: RoiRecord) -> Optional[str]:
@@ -121,7 +180,8 @@ def _pixels_ok(rec: RoiRecord) -> tuple[np.ndarray, bool]:
 
 def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
              flips: Optional[Sequence[bool]] = None, with_ignore: Optional[bool] = None,
-             load: Callable[[RoiRecord], tuple[np.ndarray, bool]] = _pixels_ok) -> Batch:
+             load: Callable[[RoiRecord], tuple[np.ndarray, bool]] = _pixels_ok,
+             proposals: Optional[dict] = None, num_proposals: int = 0) -> Batch:
     """One batch on ``device`` from uint8 records of one orientation.
 
     ``with_ignore``: whether the batch carries ``gt_ignore``, which the
@@ -131,7 +191,10 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
     ``flips``: a horizontal flip for each record (default: none).
     ``load(rec) -> (pixels, ok)``: the record's pixels (default
     :func:`load_image`); a record loaded with ``ok=False`` is a stand-in
-    whose boxes and classes are kept but whose gt slots are all invalid."""
+    whose boxes and classes are kept but whose gt slots are all invalid.
+    ``proposals``: a :func:`load_proposals` map; the batch then carries
+    ``ext_rois``/``ext_valid`` of ``num_proposals`` rows an image
+    (:func:`external_rois`), looked up by ``image_id``, a stand-in's too."""
     canvases = {record_canvas(cfg, rec) for rec in records}
     if len(canvases) > 1:
         raise ValueError(f"records of two orientations in one batch (canvases "
@@ -139,7 +202,7 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
     if with_ignore is None:
         with_ignore = roidb_with_ignore(records)
     g = cfg.max_gt_boxes
-    images, hws, boxes, classes, valid, ignore = [], [], [], [], [], []
+    images, hws, boxes, classes, valid, ignore, ext = [], [], [], [], [], [], []
     for rec, flip in zip(records, flips or [False] * len(records), strict=True):
         pixels, ok = load(rec)
         if pixels.dtype != np.uint8:
@@ -168,6 +231,8 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
         classes.append(gc)
         valid.append(gv)
         ignore.append(gi)
+        if proposals is not None:
+            ext.append(external_rois(rec, proposals, num_proposals, flip, scale, nh, nw))
     return Batch(
         images=torch.stack(images),
         image_hw=torch.tensor(np.asarray(hws, np.float32), device=device),
@@ -175,6 +240,8 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
         gt_classes=torch.tensor(np.stack(classes), device=device),
         gt_valid=torch.tensor(np.stack(valid), device=device),
         gt_ignore=torch.tensor(np.stack(ignore), device=device) if with_ignore else None,
+        ext_rois=torch.tensor(np.stack([r for r, _ in ext]), device=device) if ext else None,
+        ext_valid=torch.tensor(np.stack([v for _, v in ext]), device=device) if ext else None,
     )
 
 
@@ -201,11 +268,16 @@ class DetectionLoader:
     Single host only: the JAX loader's ``rank``/``world`` slicing, the
     same-canvas runs of ``run_length > 1`` (``steps_per_call``,
     ``accum_steps``), prefetch, the thread pool and the input service are
-    not ported; every run here has length 1."""
+    not ported; every run here has length 1.
+
+    ``proposals`` (Fast R-CNN mode): a :func:`load_proposals` map holding
+    every record of the roidb (checked here), ``num_proposals`` rows an
+    image in each batch's ``ext_rois``."""
 
     def __init__(self, roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int, device,
                  seed: int = 0, quarantine_path: Optional[str] = None,
-                 io_retries: int = 2) -> None:
+                 io_retries: int = 2, proposals: Optional[dict] = None,
+                 num_proposals: int = 0) -> None:
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = device
@@ -221,6 +293,10 @@ class DetectionLoader:
                 self._quarantine(r, ValueError(why), reason="annotation")
         self.with_ignore = roidb_with_ignore(roidb, self._bad_annotations)
         self.roidb = list(roidb)
+        self.proposals = proposals
+        self.num_proposals = num_proposals
+        if proposals is not None:
+            require_proposals(self.roidb, proposals)
         ch, cw = cfg.image_size
         if ch != cw and not cfg.aspect_grouping:
             raise ValueError("non-square image_size (orientation-bucketed canvases) "
@@ -291,7 +367,8 @@ class DetectionLoader:
     def _assemble(self, idxs: Sequence[int], flips: Sequence[bool]) -> Batch:
         recs = [self._usable(self.roidb[j]) for j in idxs]
         return assemble(recs, self.cfg, self.device, flips, self.with_ignore,
-                        load=self._load_image)
+                        load=self._load_image, proposals=self.proposals,
+                        num_proposals=self.num_proposals)
 
     def _usable(self, rec: RoiRecord) -> RoiRecord:
         """The record, or for quarantined annotations a blank stand-in with
@@ -359,13 +436,18 @@ def eval_index_specs(roidb: Sequence[RoiRecord], cfg: DataConfig,
 
 
 def eval_batches(roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int,
-                 device) -> Iterator[tuple[Batch, list[RoiRecord]]]:
+                 device, proposals: Optional[dict] = None,
+                 num_proposals: int = 0) -> Iterator[tuple[Batch, list[RoiRecord]]]:
     """One pass over ``roidb`` in :func:`eval_index_specs` order:
     ``(batch, records)``, the batch padded to ``batch_size``.  Whether
     batches carry ``gt_ignore`` is decided over the whole roidb, as the
-    train loader decides it."""
+    train loader decides it.  ``proposals``: as :class:`DetectionLoader`'s
+    (checked before the first batch), never flipped."""
+    if proposals is not None:
+        require_proposals(roidb, proposals)
     bad = [r.image_id for r in roidb if annotation_error(r) is not None]
     with_ignore = roidb_with_ignore(roidb, bad)
     for rows, idxs in eval_index_specs(roidb, cfg, batch_size):
-        yield (assemble([roidb[j] for j in rows], cfg, device, with_ignore=with_ignore),
+        yield (assemble([roidb[j] for j in rows], cfg, device, with_ignore=with_ignore,
+                        proposals=proposals, num_proposals=num_proposals),
                [roidb[j] for j in idxs])

@@ -6,10 +6,12 @@ per-image function, the batch axis is written out.  The model is a
 :class:`~mx_rcnn_tpu_torch.detection.detector.TwoStageDetector` holding its
 weights; call the inference functions under ``torch.inference_mode()``.
 :func:`forward_train` returns the differentiable total loss; its random
-draws come in as :class:`Draws` or a ``torch.Generator``.  The mask
-branch and Fast R-CNN mode (external proposals) are not ported.  One
-feature level (the C4 recipe) takes the single-level proposals and
-ROIAlign; several, the FPN ones.
+draws come in as :class:`Draws` or a ``torch.Generator``.  A batch with
+``ext_rois`` runs Fast R-CNN mode: training samples the external
+proposals in place of the RPN's (and drops the RPN from the graph when
+``rpn.loss_weight`` is 0), inference scores them.  The mask branch is
+not ported.  One feature level (the C4 recipe) takes the single-level
+proposals and ROIAlign; several, the FPN ones.
 
 Shape conventions: B = batch, G = max gt boxes, A = anchors over levels,
 R = proposals per image, S = pooled size, C = classes including
@@ -164,16 +166,32 @@ def _propose_on_features(model, feats, batch: Batch) -> Proposals:
     return propose(*_slice_levels(levels, anchors, scores, deltas), batch.image_hw)
 
 
+def _check_ext(batch: Batch) -> bool:
+    """Whether the batch carries external proposals (with their mask)."""
+    if batch.ext_rois is None:
+        return False
+    if batch.ext_valid is None:
+        raise ValueError("Batch.ext_rois requires ext_valid (pad mask)")
+    return True
+
+
 def forward_inference(model, batch: Batch, pixel_stats=None) -> Detections:
     """Full inference: backbone -> RPN -> proposals -> ROIAlign -> box
     head -> NMS (``test.nms_mode``: fused class-offset or per class) ->
-    top-D, padded with a valid mask."""
+    top-D, padded with a valid mask.  A batch with ``ext_rois`` skips the
+    RPN and scores those rois (Fast R-CNN testing, the reference's
+    ``test_rcnn --has_rpn false``)."""
     cfg = model.cfg
     post = {"fused": _postprocess_one_fused, "per_class": _postprocess_one}.get(cfg.test.nms_mode)
     if post is None:
         raise ValueError(f"test.nms_mode must be 'per_class' or 'fused', got {cfg.test.nms_mode!r}")
     feats = model.features(prep_images(batch.images, pixel_stats))
-    props = _propose_on_features(model, feats, batch)
+    if _check_ext(batch):
+        props = Proposals(rois=batch.ext_rois, valid=batch.ext_valid,
+                          scores=torch.zeros(batch.ext_valid.shape, dtype=torch.float32,
+                                             device=batch.ext_valid.device))
+    else:
+        props = _propose_on_features(model, feats, batch)
     pooled = _pool_rois_impl(cfg, feats, props.rois, cfg.rcnn.pooled_size, model.roi_levels)
     s = cfg.rcnn.pooled_size
     cls_logits, box_deltas = model.box(pooled.reshape(-1, s, s, pooled.shape[-1]))
@@ -287,7 +305,12 @@ class Draws(NamedTuple):
     """The uniform priorities in [0, 1) of one train step: ``assign_fg``
     and ``assign_bg`` (B, A) for :func:`~mx_rcnn_tpu_torch.ops.sampling.
     assign_anchors`, ``sample_fg`` and ``sample_bg`` (B, R + G) for
-    :func:`~mx_rcnn_tpu_torch.ops.sampling.sample_rois`."""
+    :func:`~mx_rcnn_tpu_torch.ops.sampling.sample_rois`, R the proposals
+    an image (the RPN's or the batch's ``ext_rois``).  A generator draws
+    them in this order in every mode: Fast R-CNN mode draws the two
+    anchor fields and leaves them unused, so the sample draws do not
+    depend on whether the RPN is in the graph (JAX splits its key into
+    the assign and sample keys in every mode)."""
 
     assign_fg: torch.Tensor
     assign_bg: torch.Tensor
@@ -381,45 +404,58 @@ def forward_train(model, batch: Batch, draws, pixel_stats=None):
     four draws then come from it, in the order of :class:`Draws`'s
     fields).  Proposals and sampled rois are detached: gradients reach the
     RPN through its losses only.  ``pixel_stats``: (mean, std) for uint8
-    batches."""
+    batches.
+
+    With ``batch.ext_rois`` the rois are sampled from those external
+    proposals (and the gt).  Fast R-CNN mode, ``rpn.loss_weight`` 0: the
+    RPN head never runs, its three metrics are exact zeros and its
+    parameters get no gradient (``None``).  Joint mode, a positive
+    weight: the RPN keeps its losses, only the sampling changes."""
     cfg = model.cfg
-    for field in ("gt_masks", "ext_rois"):
-        if getattr(batch, field, None) is not None:
-            raise NotImplementedError(f"Batch.{field}: Mask R-CNN and Fast R-CNN mode "
-                                      "are not ported")
+    if getattr(batch, "gt_masks", None) is not None:
+        raise NotImplementedError("Batch.gt_masks: Mask R-CNN is not ported")
+    use_ext = _check_ext(batch)
     images = prep_images(batch.images, pixel_stats)
     feats = model.features(images)
     dev = images.device
     b = images.shape[0]
-
-    rpn_out = model.rpn(feats)
     anchors = level_anchors(cfg, feats)
-    levels = sorted(rpn_out)
-    logits_cat = torch.cat([rpn_out[l][0] for l in levels], dim=1)
-    deltas_cat = torch.cat([rpn_out[l][1] for l in levels], dim=1)
-    anchors_cat = torch.cat([anchors[l] for l in levels], dim=0)
-    a = anchors_cat.shape[0]
+    levels = sorted(feats)
+    a = sum(anchors[l].shape[0] for l in levels)
+    assign_fg = _uniform(draws, "assign_fg", (b, a), dev)
+    assign_bg = _uniform(draws, "assign_bg", (b, a), dev)
 
     rpn = cfg.rpn
-    with torch.no_grad():
-        targets = assign_anchors(
-            anchors_cat, batch.gt_boxes, batch.gt_valid, batch.image_hw,
-            _uniform(draws, "assign_fg", (b, a), dev), _uniform(draws, "assign_bg", (b, a), dev),
-            batch_size=rpn.batch_size, fg_fraction=rpn.fg_fraction,
-            positive_iou=rpn.positive_iou, negative_iou=rpn.negative_iou,
-            allowed_border=rpn.allowed_border, gt_ignore=batch.gt_ignore,
-        )
-    rpn_cls, rpn_box, rpn_acc = _rpn_losses(logits_cat, deltas_cat, targets, rpn.loss_impl)
+    if use_ext and rpn.loss_weight == 0.0:
+        # Fast R-CNN mode (the reference's train_rcnn.py): no RPN head, no
+        # anchor labelling, no RPN losses.
+        rpn_cls = rpn_box = rpn_acc = torch.zeros((), dtype=torch.float32, device=dev)
+    else:
+        rpn_out = model.rpn(feats)
+        logits_cat = torch.cat([rpn_out[l][0] for l in levels], dim=1)
+        deltas_cat = torch.cat([rpn_out[l][1] for l in levels], dim=1)
+        anchors_cat = torch.cat([anchors[l] for l in levels], dim=0)
+        with torch.no_grad():
+            targets = assign_anchors(
+                anchors_cat, batch.gt_boxes, batch.gt_valid, batch.image_hw, assign_fg, assign_bg,
+                batch_size=rpn.batch_size, fg_fraction=rpn.fg_fraction,
+                positive_iou=rpn.positive_iou, negative_iou=rpn.negative_iou,
+                allowed_border=rpn.allowed_border, gt_ignore=batch.gt_ignore,
+            )
+        rpn_cls, rpn_box, rpn_acc = _rpn_losses(logits_cat, deltas_cat, targets, rpn.loss_impl)
 
     with torch.no_grad():
-        scores = torch.sigmoid(logits_cat.detach())
-        propose = _propose_one(cfg, train=True)
-        props = propose(*_slice_levels(levels, anchors, scores, deltas_cat.detach()),
-                        batch.image_hw)
-        n = props.rois.shape[1] + batch.gt_boxes.shape[1]
+        if use_ext:
+            rois, rois_valid = batch.ext_rois, batch.ext_valid
+        else:
+            scores = torch.sigmoid(logits_cat.detach())
+            propose = _propose_one(cfg, train=True)
+            rois, _, rois_valid = propose(
+                *_slice_levels(levels, anchors, scores, deltas_cat.detach()), batch.image_hw)
+        n = rois.shape[1] + batch.gt_boxes.shape[1]
         rc = cfg.rcnn
         samples = sample_rois(
-            props.rois, props.valid, batch.gt_boxes, batch.gt_classes, batch.gt_valid,
+            rois, rois_valid, batch.gt_boxes, batch.gt_classes, batch.gt_valid,
             _uniform(draws, "sample_fg", (b, n), dev), _uniform(draws, "sample_bg", (b, n), dev),
             batch_size=rc.roi_batch_size, fg_fraction=rc.fg_fraction, fg_iou=rc.fg_iou,
             bg_iou_hi=rc.bg_iou_hi, bg_iou_lo=rc.bg_iou_lo, bbox_weights=rc.bbox_weights,

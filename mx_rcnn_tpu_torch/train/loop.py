@@ -8,7 +8,11 @@ the given ``state_dict``, and a torchvision ResNet or VGG-16 ``.pth``
 over the backbone), freezes the reference's backbone prefixes, and builds the
 schedule, the optimizer, the state and the step.  :func:`train` runs the
 steps over any roidb that ``data/datasets.py::build_dataset`` returns, in
-the JAX loader's batch schedule (``data/loader.py::DetectionLoader``).
+the JAX loader's batch schedule (``data/loader.py::DetectionLoader``),
+on the RPN's proposals or, given a proposal pkl, on external ones (Fast
+R-CNN mode).  A phase of the alternate schedule
+(``cli/alternate_cli.py``) freezes more prefixes and starts from the
+previous phase's weights with a fresh optimizer.
 Metrics stay on the card between drains (every ``train.log_every`` steps,
 at checkpoint boundaries and on preemption); a drain reads the interval
 back in one transfer, shows it to the guardian, logs one JSON line and
@@ -38,7 +42,7 @@ import torch
 
 from mx_rcnn_tpu_torch.config import Config, ScheduleConfig
 from mx_rcnn_tpu_torch.data.datasets import build_dataset
-from mx_rcnn_tpu_torch.data.loader import DetectionLoader
+from mx_rcnn_tpu_torch.data.loader import DetectionLoader, load_proposals
 from mx_rcnn_tpu_torch.data.roidb import filter_roidb
 from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
 from mx_rcnn_tpu_torch.parallel.prefetch import PrefetchStats, _timed_pulls
@@ -84,14 +88,16 @@ def scale_schedule_steps(sched: ScheduleConfig, global_batch: int) -> ScheduleCo
 
 
 def build_all(cfg: Config, device=None, variables: Optional[dict] = None,
-              pretrained: Optional[str] = None):
+              pretrained: Optional[str] = None, extra_freeze: tuple[str, ...] = ()):
     """-> (model, optimizer, state, step_fn, global_batch).  ``variables``:
     a ``state_dict`` to start from (default: ``init_variables`` seeded by
     ``train.seed``); ``pretrained``: a torchvision ResNet or VGG-16 ``.pth``
     whose tensors then replace the backbone's (and VGG's ``fc6``/``fc7``;
     ``train/import_torch.py``).  With
     ``backbone.freeze_stages > 0`` the backbone's ``FREEZE_PREFIXES`` are
-    frozen."""
+    frozen, and ``extra_freeze`` (JAX module paths such as ``"rpn"`` or
+    ``"box_head"``; ``optim.py::frozen_mask``) in any case.  The
+    optimizer is fresh: step 0, zero momentum."""
     dev = resolve_device(device)
     model = TwoStageDetector(cfg.model, device=dev)
     if variables is None:
@@ -107,6 +113,7 @@ def build_all(cfg: Config, device=None, variables: Optional[dict] = None,
     freeze = ()
     if cfg.model.backbone.freeze_stages > 0:
         freeze = FREEZE_PREFIXES.get(cfg.model.backbone.name, ())
+    freeze = tuple(freeze) + tuple(extra_freeze)
     params = dict(model.named_parameters())
     trainable = frozen_mask(params, freeze)
     for name, p in params.items():
@@ -166,7 +173,8 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
           variables: Optional[dict] = None, log: Callable[[str], None] = print,
           workdir: Optional[str] = None, resume: bool = False,
           pretrained: Optional[str] = None, strict_resume: bool = False,
-          loader: Optional[DetectionLoader] = None) -> TrainState:
+          loader: Optional[DetectionLoader] = None, extra_freeze: tuple[str, ...] = (),
+          proposals_path: Optional[str] = None) -> TrainState:
     """Train up to step ``steps`` (default: the schedule's total) and
     return the final state.
 
@@ -180,8 +188,17 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
     data schedule; ``strict_resume`` makes a config drift from the run's
     ``config.json`` an error.  ``pretrained``: a torchvision ResNet or
     VGG-16 ``.pth`` for the backbone.  ``loader``: a ``DetectionLoader``
-    to draw from (default: the filtered train roidb of ``cfg.data``)."""
-    _, _, state, step_fn, global_batch = build_all(cfg, device, variables, pretrained)
+    to draw from (default: the filtered train roidb of ``cfg.data``).
+    ``extra_freeze``: prefixes frozen besides the backbone's
+    (:func:`build_all`).  ``proposals_path``: a proposal pkl
+    (``data/loader.py::load_proposals``) whose best
+    ``rpn.train_post_nms_top_n`` boxes an image the default loader puts
+    in ``Batch.ext_rois``; with ``rpn.loss_weight`` 0 that is Fast R-CNN
+    mode, the RPN out of the graph.  ``variables`` from an earlier phase
+    continue it: its parameters and FrozenBN buffers, a fresh optimizer,
+    step 0 and the schedule restarted."""
+    _, _, state, step_fn, global_batch = build_all(cfg, device, variables, pretrained,
+                                                   extra_freeze)
     dev = next(state.model.parameters()).device
     if steps is None:
         steps = scale_schedule_steps(cfg.train.schedule, global_batch).total_steps
@@ -196,7 +213,9 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
         roidb = filter_roidb(build_dataset(cfg.data, train=True).roidb())
         loader = DetectionLoader(
             roidb, cfg.data, global_batch, dev, seed=cfg.train.seed,
-            quarantine_path=f"{run_dir}/quarantine.jsonl" if workdir else None)
+            quarantine_path=f"{run_dir}/quarantine.jsonl" if workdir else None,
+            proposals=load_proposals(proposals_path) if proposals_path else None,
+            num_proposals=cfg.model.rpn.train_post_nms_top_n)
 
     start = state.step
     writer = None
