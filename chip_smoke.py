@@ -125,6 +125,28 @@ when every phase passed):
    ``kernels`` line's ``@fast`` entries.  Seconds a step per phase with
    ``data_stall_ms``, the dumps' images a second, peak memory and the
    phase's seconds are printed.  The rehearsal cuts it as 7c.
+7e. Mask R-CNN (:func:`mask_phase`), ``mask_r50_fpn_coco`` at full width
+   (ResNet-50 + FPN, 800x1344, batch 2, 81 classes, the mask branch
+   pooling at 14x14), random weights from the seed: (a) serve: an engine
+   with ``serve.fused_middle=on`` at batch 2 (the ``full`` program: B1 at
+   7x7 and 14x14, B3), every response with one (h, w) bool mask a
+   detection (classes 1-4 favoured), and one with ``rpn.nms_impl=pallas``
+   (the ``proposals`` program: B4), counts set to 0 before each path and
+   read after.  (b) 3 train steps through ``train/loop.py::train`` on the
+   synthetic set and its octagon masks, compact RPN loss, mixed policy:
+   ``MaskLogLoss`` finite and above 0 in every step, every trainable
+   parameter (the mask head's all) moved, the frozen groups bitwise, B1
+   and B2 twice a step; seconds a step with ``data_stall_ms`` and peak
+   memory printed.  (c) ``run_eval`` on 16 synthetic images: bbox and
+   ``segm/*`` metrics finite, the dump rescored equal, the first batch in
+   float32 identical in boxes and masks through the kernels and the plain
+   path, B1 twice a forward; img/s and the host's paste and RLE time a
+   batch printed.  (d)
+   B1 at 14x14 on (a)'s detection boxes and on (b)'s last fg prefix
+   (bf16 within one ulp, f32 bitwise) and B2 at 14x14 on (b)'s last mask
+   cotangent, each against its plain version and timed as in phase 3:
+   the ``kernels`` line's ``@mask`` entries.  Phase 7e's launches count
+   in B1-B4's entries as well.  The rehearsal cuts it as 7c.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -132,7 +154,9 @@ when every phase passed):
    (``roi_align_impl=xla``) gives the same loss and metrics within 1e-6
    relative (B1 is bitwise in f32) and gradients within the CPU parity
    tests' tolerances (backbone 5e-3 by norm, the rest 1e-5 of the largest
-   value): B2 and autograd's scatter sum in different orders.
+   value): B2 and autograd's scatter sum in different orders.  The same
+   step again with the mask branch on at 14x14 (B1 and B2 twice), with
+   ``MaskLogLoss`` among the metrics.
 9. With ``--parent DIR``: import DIR's kernel wrappers (``ops/cuda``, its
    own package beside this one) and build its four kernel sources, then
    require this tree's kernels to give the same bits as DIR's wrappers on
@@ -407,9 +431,32 @@ def fwd_within_tolerance(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool((diff <= 1e-5).all())
 
 
+def tapped_cells(pyr, rois, s: int, sr: int) -> tuple[int, int]:
+    """(cells read, cells in all): the distinct (image, level, y, x) cells
+    of ``pyr`` under B1's bilinear taps with a nonzero weight on ``rois``
+    at S = ``s``, each roi on its own level, against the pyramid's count.
+    Read off the plain backward of a one-channel cotangent of ones: its
+    weights are nonnegative, so a cell's sum is nonzero exactly when a
+    tap reads it."""
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_plain,
+        roi_level_index,
+    )
+
+    levels = sorted(pyr)
+    shapes = {l: tuple(pyr[l].shape[1:3]) for l in levels}
+    ones = torch.ones((*rois.shape[:2], s, s, 1), device=rois.device)
+    hits = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois,
+                                          roi_level_index(rois, levels), ones, sr)
+    return (sum(int(torch.count_nonzero(h)) for h in hits.values()),
+            sum(h.numel() for h in hits.values()))
+
+
 def hold_fwd(pyr, rois, s: int, sr: int, clock, iters: int, plain_iters: int) -> dict:
     """B1 on these inputs against its plain version (within tolerance) and
-    two launches bitwise equal; timed, the kernel alone too."""
+    two launches bitwise equal; timed, the kernel alone too.  Its bound's
+    bytes: the rois, the output and the pyramid cells the taps read
+    (:func:`tapped_cells`), each once."""
     from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
         multilevel_roi_align_cuda,
         multilevel_roi_align_plain,
@@ -420,15 +467,16 @@ def hold_fwd(pyr, rois, s: int, sr: int, clock, iters: int, plain_iters: int) ->
     want = multilevel_roi_align_plain(pyr, rois, s, sr)
     deterministic = torch.equal(got, again)
     flops = got.numel() * (sr * sr * 14 + 1)
+    read, cells = tapped_cells(pyr, rois, s, sr)
     return dict(
         match=fwd_within_tolerance(got, want) and deterministic, deterministic=deterministic,
         max_abs_err=float((got.float() - want.float()).abs().max()),
         ms=clock.ms(lambda: multilevel_roi_align_cuda(pyr, rois, s, sr), iters),
         kernel_ms=clock.kernel_ms(lambda: multilevel_roi_align_cuda(pyr, rois, s, sr)),
         plain_ms=clock.ms(lambda: multilevel_roi_align_plain(pyr, rois, s, sr), plain_iters),
-        bound=bound(nbytes(*pyr.values(), rois, got), flops),
+        bound=bound(nbytes(rois, got) + read * got.shape[-1] * got.element_size(), flops),
         shape=f"B={rois.shape[0]} R={rois.shape[1]} C={got.shape[-1]} "
-              f"{str(got.dtype).split('.')[-1]}",
+              f"{str(got.dtype).split('.')[-1]}, taps read {read / cells:.1%} of the pyramid",
     )
 
 
@@ -459,13 +507,15 @@ def edge_rois(b: int, r: int, h: int, w: int, seed: int) -> torch.Tensor:
 
 
 def synthetic_batch(cfg, dev, seed: int):
-    """A batch-2 uint8 train batch of the synthetic set on ``cfg``'s canvas."""
+    """A batch-2 uint8 train batch of the synthetic set on ``cfg``'s canvas
+    (with its gt masks for a mask model)."""
     from mx_rcnn_tpu_torch.data.datasets import SyntheticDataset
     from mx_rcnn_tpu_torch.data.loader import assemble
 
     ds = SyntheticDataset(image_hw=tuple(cfg.data.image_size),
                           num_classes=cfg.model.num_classes, seed=seed)
-    return assemble([ds.record(0), ds.record(1)], cfg.data, dev)
+    return assemble([ds.record(0), ds.record(1)], cfg.data, dev,
+                    with_masks=cfg.model.mask.enabled)
 
 
 def backward_phase(dev, rehearsal: bool, seed: int) -> dict:
@@ -639,6 +689,10 @@ def check_response(res: dict, height: int, width: int) -> None:
         or (boxes[:, 2] < boxes[:, 0]).any() or (boxes[:, 3] < boxes[:, 1]).any()
     ):
         raise AssertionError(f"boxes outside the {height}x{width} image")
+    masks = res.get("masks")
+    if masks is not None and (len(masks) != len(boxes) or any(
+            m.shape != (height, width) or m.dtype != np.bool_ for m in masks)):
+        raise AssertionError(f"masks are not one ({height}, {width}) bool mask a detection")
 
 
 def serve_path(name, engine, images, counters, timeout) -> dict:
@@ -655,10 +709,12 @@ def serve_path(name, engine, images, counters, timeout) -> dict:
         check_response(res, *img.shape[:2])
     lat = [1e3 * (r.served_at - r.submitted_at) for r in reqs]
     counts = [len(r["scores"]) for r in results]
+    with_masks = all("masks" in r for r in results)
     log(f"[serve:{name}] {len(images)} requests in {wall:.3f} s = {len(images) / wall:.2f} img/s; "
-        f"latency ms per request {[round(x, 1) for x in lat]}; outputs per request {counts}; "
-        f"launches {launches}")
-    return {"launches": launches, "counts": counts, "latency_ms": [round(x, 1) for x in lat]}
+        f"latency ms per request {[round(x, 1) for x in lat]}; outputs per request {counts}"
+        f"{', each with its masks' if with_masks else ''}; launches {launches}")
+    return {"launches": launches, "counts": counts, "latency_ms": [round(x, 1) for x in lat],
+            "with_masks": with_masks}
 
 
 def serving_phase(dev, rehearsal: bool, seed: int) -> dict:
@@ -677,10 +733,7 @@ def serving_phase(dev, rehearsal: bool, seed: int) -> dict:
     # Random heads put every class near 1/81, under test.score_threshold;
     # a few favoured classes make the full path return detections.
     variables["box_head.cls_score.bias"][1:5] = 4.0
-    rng = np.random.RandomState(seed)
-    sizes = ([(96, 128), (128, 100), (80, 120)] if rehearsal
-             else [(480, 640), (800, 1333), (600, 1000), (427, 640), (640, 480)])
-    images = [rng.uniform(0, 255, (hh, ww, 3)).astype(np.float32) for hh, ww in sizes]
+    images = serve_images(rehearsal, seed)
     timeout = 600.0
 
     out = {}
@@ -744,16 +797,17 @@ def finite_line(m: dict) -> bool:
 
 
 @contextlib.contextmanager
-def captured_backward(store: list, keep):
+def captured_backward(store: list, keep, size=None):
     """Wrap B2's autograd Function: each backward call whose level shapes
-    ``keep`` accepts puts its inputs, as :func:`hold_bwd` takes them, in
-    ``store[0]`` (the last such call wins)."""
+    ``keep`` accepts (and whose output size is ``size``, when given) puts
+    its inputs, as :func:`hold_bwd` takes them, in ``store[0]`` (the last
+    such call wins)."""
     from mx_rcnn_tpu_torch.ops.cuda import roi_align as roi_align_mod
 
     backward = roi_align_mod.MultilevelRoiAlign.backward
 
     def capture(ctx, g):
-        if keep(ctx.shapes):
+        if keep(ctx.shapes) and size in (None, ctx.output_size):
             rois, level_idx = ctx.saved_tensors[:2]
             store[:] = [(dict(ctx.shapes), ctx.dtype, rois.clone(), level_idx.clone(),
                          g.to(ctx.dtype).contiguous().clone(), ctx.sampling_ratio)]
@@ -784,14 +838,16 @@ def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
     return train_run(dev, rehearsal, cfg, "train", steps, unmoved=2 if rehearsal else 0)
 
 
-def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 0) -> dict:
+def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 0,
+              per_step: int = 1, bwd_size=None) -> dict:
     """``cfg`` trained for ``steps`` steps through ``train/loop.py::train``
     with random weights from ``train.seed``; the launch counts are set to
     0 just before and read after every step.  Every loss finite, B1 and B2
-    launched in every step (on the card), every trainable parameter but
-    ``unmoved`` moved, frozen parameters and FrozenBN buffers bitwise
-    unchanged.  Returns the launches, the last step's B2 inputs, the state
-    and ``cfg``."""
+    launched ``per_step`` times in every step (on the card), every
+    trainable parameter but ``unmoved`` moved, frozen parameters and
+    FrozenBN buffers bitwise unchanged.  Returns the launches, the last
+    step's B2 inputs (of its call at output size ``bwd_size``, when
+    given), the state and ``cfg``."""
     from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
         multilevel_roi_align_bwd_cuda,
         multilevel_roi_align_cuda,
@@ -821,7 +877,7 @@ def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with captured_backward(step_args, lambda shapes: True):
+    with captured_backward(step_args, lambda shapes: True, bwd_size):
         state = train(cfg, steps=steps, device=dev, variables=variables, log=on_step)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
 
@@ -831,7 +887,7 @@ def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 
         raise AssertionError(f"{label}: {len(steps_seen)} of {steps} steps, non-finite at {bad}")
     if not rehearsal:
         missing = [(i, k) for i, (_, _, per) in enumerate(steps_seen) for k, v in per.items()
-                   if v < 1]
+                   if v != per_step]
         if missing:
             raise AssertionError(f"{label}: kernels not launched at (step, kernel) {missing}")
     moved, frozen_same, n_frozen = 0, True, 0
@@ -864,7 +920,8 @@ def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 
     if not step_args:
         raise AssertionError(f"{label}: the ROIAlign backward was never called")
     return {"launches": launches, "step_args": step_args[0], "state": state, "cfg": cfg,
-            "s_per_step": wall, "data_stall_ms": stall, "peak_gib": peak}
+            "s_per_step": wall, "data_stall_ms": stall, "peak_gib": peak,
+            "lines": [m for _, m, _ in steps_seen]}
 
 
 def torchvision_resnet50(seed: int) -> dict:
@@ -1273,10 +1330,11 @@ def first_batch_reference(dev, cfg, state_dict, roidb, batch: int, label: str,
                           proposals=None):
     """The first eval batch of ``roidb`` through the kernels and through the
     plain versions (``roi_align_impl=xla``), both in float32 from
-    ``state_dict``: the detections must be identical (B1 is the one kernel
-    of this path whatever the mode, bitwise in float32), and there must be
-    some.  ``proposals``: a proposal map whose boxes the batch carries
-    (``--from-proposals``).  Returns the batch."""
+    ``state_dict``: the detections, and a mask model's masks, must be
+    identical (B1 is the one kernel of this path whatever the mode,
+    bitwise in float32), and there must be some.  ``proposals``: a
+    proposal map whose boxes the batch carries (``--from-proposals``).
+    Returns the batch."""
     from mx_rcnn_tpu_torch.config import apply_overrides
     from mx_rcnn_tpu_torch.data.loader import eval_batches
     from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
@@ -1290,12 +1348,14 @@ def first_batch_reference(dev, cfg, state_dict, roidb, batch: int, label: str,
         model = TwoStageDetector(fcfg.model, device=dev)
         model.load_state_dict(state_dict)
         step = make_eval_step((fcfg.data.pixel_mean, fcfg.data.pixel_std))
-        dets[name] = [x.cpu() for x in step(model, first)]
+        dets[name] = [None if x is None else x.cpu() for x in step(model, first)]
         del model
-    same = all(torch.equal(a, b) for a, b in zip(dets["kernels"], dets["plain"]))
+    same = all(a is b if a is None or b is None else torch.equal(a, b)
+               for a, b in zip(dets["kernels"], dets["plain"], strict=True))
+    masks = dets["kernels"][4] is not None
     log(f"[{label}:reference] first batch, float32: {int(dets['kernels'][3].sum())} detections "
         f"through the kernels, {int(dets['plain'][3].sum())} through the plain path, "
-        f"identical={same}")
+        f"identical={same}{' (boxes and masks)' if masks else ''}")
     if not same or not dets["kernels"][3].any():
         raise AssertionError(f"{label}: the kernel path and the plain path disagree, or return "
                              "no detections")
@@ -1433,52 +1493,58 @@ def eval_phase(dev, rehearsal: bool, trained: dict) -> dict:
 
 
 def train_reference_phase(dev, seed: int) -> None:
-    """Phase 6, training: one tiny_synthetic float32 step through the
-    kernels and through the plain path, same weights, batch and draws."""
+    """Phase 8, training: one tiny_synthetic float32 step through the
+    kernels and through the plain path, same weights, batch and draws;
+    then the same with the mask branch on at the preset's 14x14 pooling
+    (B1 and B2 twice a step)."""
     from mx_rcnn_tpu_torch.config import apply_overrides, get_config
     from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
     from mx_rcnn_tpu_torch.detection.graph import Draws, forward_train
     from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_bwd_cuda
     from mx_rcnn_tpu_torch.weights import init_variables
 
-    base = get_config("tiny_synthetic")
-    variables = init_variables(base.model, torch.Generator().manual_seed(seed + 3))
-    batch = synthetic_batch(base, dev, seed + 3)
-    g = torch.Generator(device=dev).manual_seed(seed + 3)
-    n_anchors = sum(3 * (128 >> l) ** 2 for l in range(2, 7))
-    n_rows = base.model.rpn.train_post_nms_top_n + base.data.max_gt_boxes
-    draws = Draws(*(torch.rand((2, n), generator=g, device=dev)
-                    for n in (n_anchors, n_anchors, n_rows, n_rows)))
-    stats = (base.data.pixel_mean, base.data.pixel_std)
-    runs = {}
-    for name, over in (("kernels", []), ("plain", ["model.rcnn.roi_align_impl=xla"])):
-        model = TwoStageDetector(apply_overrides(base, over).model, device=dev)
-        model.load_state_dict(variables)
-        before = multilevel_roi_align_bwd_cuda.launches
-        total, metrics = forward_train(model, batch, draws, stats)
-        total.backward()
-        runs[name] = ({k: float(v.detach()) for k, v in metrics.items()},
-                      {n: p.grad for n, p in model.named_parameters()},
-                      multilevel_roi_align_bwd_cuda.launches - before)
-    (km, kg, kl), (pm, pg, pl) = runs["kernels"], runs["plain"]
-    metric_err = max(abs(km[k] - pm[k]) / max(abs(pm[k]), 1.0) for k in km)
-    worst, ok = 0.0, True
-    for n, a in pg.items():
-        d = kg[n] - a
-        if n.startswith("backbone."):
-            rel = float(d.norm() / a.norm().clamp(min=1e-12))
-            ok &= rel <= 5e-3
-        else:
-            rel = float(d.abs().max() / a.abs().max().clamp(min=1e-12))
-            ok &= rel <= 1e-5
-        worst = max(worst, rel)
-    log(f"[reference:train] tiny_synthetic f32: loss {km['loss']:.6f} (kernels) vs "
-        f"{pm['loss']:.6f} (plain), largest metric difference {metric_err:.3g} (<= 1e-6 "
-        f"relative); worst gradient "
-        f"difference {worst:.3g} (backbone by norm <= 5e-3, others by max <= 1e-5); "
-        f"B2 launches {kl} vs {pl}")
-    if metric_err > 1e-6 or not ok or kl != 1 or pl != 0:
-        raise AssertionError("the kernel train step and the plain train step disagree")
+    for label, extra in (("", []), (":mask", ["model.mask.enabled=true"])):
+        base = apply_overrides(get_config("tiny_synthetic"), extra)
+        variables = init_variables(base.model, torch.Generator().manual_seed(seed + 3))
+        batch = synthetic_batch(base, dev, seed + 3)
+        g = torch.Generator(device=dev).manual_seed(seed + 3)
+        n_anchors = sum(3 * (128 >> l) ** 2 for l in range(2, 7))
+        n_rows = base.model.rpn.train_post_nms_top_n + base.data.max_gt_boxes
+        draws = Draws(*(torch.rand((2, n), generator=g, device=dev)
+                        for n in (n_anchors, n_anchors, n_rows, n_rows)))
+        stats = (base.data.pixel_mean, base.data.pixel_std)
+        runs = {}
+        for name, over in (("kernels", []), ("plain", ["model.rcnn.roi_align_impl=xla"])):
+            model = TwoStageDetector(apply_overrides(base, over).model, device=dev)
+            model.load_state_dict(variables)
+            before = multilevel_roi_align_bwd_cuda.launches
+            total, metrics = forward_train(model, batch, draws, stats)
+            total.backward()
+            runs[name] = ({k: float(v.detach()) for k, v in metrics.items()},
+                          {n: p.grad for n, p in model.named_parameters()},
+                          multilevel_roi_align_bwd_cuda.launches - before)
+        (km, kg, kl), (pm, pg, pl) = runs["kernels"], runs["plain"]
+        metric_err = max(abs(km[k] - pm[k]) / max(abs(pm[k]), 1.0) for k in km)
+        worst, ok = 0.0, True
+        for n, a in pg.items():
+            d = kg[n] - a
+            if n.startswith("backbone."):
+                rel = float(d.norm() / a.norm().clamp(min=1e-12))
+                ok &= rel <= 5e-3
+            else:
+                rel = float(d.abs().max() / a.abs().max().clamp(min=1e-12))
+                ok &= rel <= 1e-5
+            worst = max(worst, rel)
+        want_launches = 2 if base.model.mask.enabled else 1
+        log(f"[reference:train{label}] tiny_synthetic f32: loss {km['loss']:.6f} (kernels) vs "
+            f"{pm['loss']:.6f} (plain), largest metric difference {metric_err:.3g} (<= 1e-6 "
+            f"relative) over {sorted(km)}; worst gradient "
+            f"difference {worst:.3g} (backbone by norm <= 5e-3, others by max <= 1e-5); "
+            f"B2 launches {kl} vs {pl}")
+        if metric_err > 1e-6 or not ok or kl != want_launches or pl != 0 or \
+                ("MaskLogLoss" in km) != base.model.mask.enabled:
+            raise AssertionError(f"the kernel train step{label} and the plain train step "
+                                 "disagree")
 
 
 # Phase c4: the single-level C4 family at full width; the first is the
@@ -1499,21 +1565,22 @@ def c4_overrides(rehearsal: bool) -> list[str]:
 
 
 @contextlib.contextmanager
-def captured_pool(store: list):
-    """Put the one-level pyramid and rois of the last single-level ROIAlign
-    call of ``detection/graph.py`` in ``store[0]``, and whether B1 read
-    that map eight channels a thread (contiguous, C a multiple of 8,
-    16-byte aligned) in ``store[1]`` (``forward_inference`` looks
-    ``_pool_rois_impl`` up at each call)."""
+def captured_pool(store: list, wanted=lambda size, levels: len(levels) == 1):
+    """Put the pyramid and rois of the last ROIAlign call of
+    ``detection/graph.py`` that ``wanted(pooled_size, levels)`` picks (by
+    default the single-level ones) in ``store[0]``, detached copies, and
+    whether B1 read that map eight channels a thread (contiguous, C a
+    multiple of 8, 16-byte aligned) in ``store[1]`` (``forward_train`` and
+    ``forward_inference`` look ``_pool_rois_impl`` up at each call)."""
     from mx_rcnn_tpu_torch.detection import graph
 
     pool = graph._pool_rois_impl
 
     def capture(cfg, feats, rois, pooled_size, roi_level_set):
         levels = {l: f for l, f in feats.items() if l in roi_level_set}
-        if len(levels) == 1:
-            (f,) = levels.values()
-            vec = f.is_contiguous() and f.shape[-1] % 8 == 0 and f.data_ptr() % 16 == 0
+        if wanted(pooled_size, levels):
+            vec = all(f.is_contiguous() and f.shape[-1] % 8 == 0 and f.data_ptr() % 16 == 0
+                      for f in levels.values())
             store[:] = [({l: f.detach().clone() for l, f in levels.items()},
                          rois.detach().clone()), vec]
         return pool(cfg, feats, rois, pooled_size, roi_level_set)
@@ -1525,39 +1592,57 @@ def captured_pool(store: list):
         graph._pool_rois_impl = pool
 
 
+def serve_programs(dev, label: str, base, variables, images, counters, capture) -> dict:
+    """The ``full`` program with ``serve.fused_middle=on`` at batch 2 over
+    ``images`` (inside the context ``capture``), then the ``proposals``
+    program with ``rpn.nms_impl=pallas`` at batch 1 over the first three;
+    each path with the counts set to 0 just before and read just after."""
+    from mx_rcnn_tpu_torch.config import apply_overrides
+    from mx_rcnn_tpu_torch.serve.engine import build_engine
+
+    out = {}
+    full_cfg = apply_overrides(base, ["serve.fused_middle=on", "serve.batch_size=2"])
+    t0 = time.perf_counter()
+    with build_engine(full_cfg, variables, device=dev) as engine, capture:
+        log(f"[{label}:full] warm-up {time.perf_counter() - t0:.1f} s "
+            f"(programs {engine.runner.levels()}, bucket {engine.runner.buckets})")
+        out["full"] = serve_path(f"{label}:full", engine, images, counters, 600.0)
+    prop_cfg = apply_overrides(base, ["model.rpn.nms_impl=pallas"])
+    with build_engine(prop_cfg, variables, batch_size=1, device=dev, mode="proposals") as engine:
+        out["proposals"] = serve_path(f"{label}:proposals", engine, images[:3], counters, 600.0)
+    return out
+
+
+def serve_images(rehearsal: bool, seed: int, voc: bool = False) -> list:
+    """Float32 noise requests at COCO's image sizes (VOC's with ``voc``),
+    small on the rehearsal."""
+    if rehearsal:
+        sizes = [(96, 128), (128, 100), (80, 120)]
+    elif voc:
+        sizes = [(375, 500), (500, 375), (333, 500), (500, 333), (281, 500)]
+    else:
+        sizes = [(480, 640), (800, 1333), (600, 1000), (427, 640), (640, 480)]
+    rng = np.random.RandomState(seed)
+    return [rng.uniform(0, 255, (hh, ww, 3)).astype(np.float32) for hh, ww in sizes]
+
+
 def c4_serve(dev, rehearsal: bool, seed: int, name: str, counters: dict) -> dict:
     """Phase c4 (a): ``name`` at full width through the engine, random
     weights from the seed, classes 1-4 favoured: the ``full`` program with
     ``serve.fused_middle=on`` at batch 2 (B1 on one level, B3 at L = 1),
     then the ``proposals`` program with ``rpn.nms_impl=pallas`` at batch 1
-    (B4 on one level); each path with the counts set to 0 just before and
-    read just after, and every kernel of it launched (on the card)."""
+    (B4 on one level) (:func:`serve_programs`); every kernel of a path
+    launched (on the card)."""
     from mx_rcnn_tpu_torch.config import apply_overrides, get_config
-    from mx_rcnn_tpu_torch.serve.engine import build_engine
     from mx_rcnn_tpu_torch.weights import init_variables
 
     base = apply_overrides(get_config(name), c4_overrides(rehearsal))
     variables = init_variables(base.model, torch.Generator().manual_seed(seed))
     variables["box_head.cls_score.bias"][1:5] = 4.0
-    rng = np.random.RandomState(seed)
-    if rehearsal:
-        sizes = [(96, 128), (128, 100), (80, 120)]
-    elif name == "vgg16_voc07":      # VOC's own sizes
-        sizes = [(375, 500), (500, 375), (333, 500), (500, 333), (281, 500)]
-    else:
-        sizes = [(480, 640), (800, 1333), (600, 1000), (427, 640), (640, 480)]
-    images = [rng.uniform(0, 255, (hh, ww, 3)).astype(np.float32) for hh, ww in sizes]
-    out, pooled = {}, []
-    full_cfg = apply_overrides(base, ["serve.fused_middle=on", "serve.batch_size=2"])
-    t0 = time.perf_counter()
-    with build_engine(full_cfg, variables, device=dev) as engine, captured_pool(pooled):
-        log(f"[c4:{name}:full] warm-up {time.perf_counter() - t0:.1f} s "
-            f"(programs {engine.runner.levels()}, bucket {engine.runner.buckets})")
-        out["full"] = serve_path(f"c4:{name}:full", engine, images, counters, 600.0)
-    prop_cfg = apply_overrides(base, ["model.rpn.nms_impl=pallas"])
-    with build_engine(prop_cfg, variables, batch_size=1, device=dev, mode="proposals") as engine:
-        out["proposals"] = serve_path(f"c4:{name}:proposals", engine, images[:3], counters,
-                                      600.0)
+    images = serve_images(rehearsal, seed, voc=name == "vgg16_voc07")
+    pooled = []
+    out = serve_programs(dev, f"c4:{name}", base, variables, images, counters,
+                         captured_pool(pooled))
     if sum(out["full"]["counts"]) == 0:
         raise AssertionError(f"c4 {name}: the full path returned no detections")
     log(f"[c4:{name}:full] B1 reads the {tuple(pooled[0][0][4].shape)} map eight channels "
@@ -2253,6 +2338,203 @@ def fast_kernels(dev, rehearsal: bool, cfg, model, alt: dict, records: list,
     return out
 
 
+# Phase 7e: Mask R-CNN (mask_r50_fpn_coco) at full width; the mask
+# branch pools at 14x14, which only it gives B1 and B2.
+MASK_CONFIG = "mask_r50_fpn_coco"
+
+
+def mask_pool(size: int):
+    """The :func:`captured_pool` predicate of the mask branch's calls."""
+    return lambda pooled_size, levels: pooled_size == size
+
+
+def mask_serve(dev, rehearsal: bool, seed: int, counters: dict) -> dict:
+    """Phase 7e (a): mask_r50_fpn_coco at full width through the engine at
+    batch 2, random weights from the seed, classes 1-4 favoured: the
+    ``full`` program with ``serve.fused_middle=on`` (B1 at 7x7 and 14x14,
+    B3), then the ``proposals`` program with ``rpn.nms_impl=pallas`` (B4)
+    (:func:`serve_programs`); every kernel of a path launched (on the
+    card, B1 twice a call), every ``full`` response with one (h, w) bool
+    mask a detection."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    base = apply_overrides(get_config(MASK_CONFIG), c4_overrides(rehearsal))
+    variables = init_variables(base.model, torch.Generator().manual_seed(seed))
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    images = serve_images(rehearsal, seed)
+    pooled = []
+    out = serve_programs(dev, "mask", base, variables, images, counters,
+                         captured_pool(pooled, mask_pool(base.model.mask.pooled_size)))
+    if sum(out["full"]["counts"]) == 0 or not out["full"]["with_masks"]:
+        raise AssertionError("mask: the full path returned no detections, or no masks")
+    calls = -(-len(images) // 2)
+    need = {"full": {"roi_align": 2 * calls, "fused_middle": 1}, "proposals": {"nms": 1}}
+    missing = [(path, k) for path, ks in need.items() for k, n in ks.items()
+               if out[path]["launches"][k] < n]
+    if missing and not rehearsal:
+        raise AssertionError(f"mask: kernels not launched on (path, kernel) {missing}")
+    out["pool"] = pooled[0]
+    return out
+
+
+def mask_eval(dev, rehearsal: bool, trained: dict, counters: dict) -> dict:
+    """Phase 7e (c): ``run_eval`` on 16 synthetic images at
+    ``test.per_device_batch`` with the trained state (classes 1-4 given
+    the background's classifier row plus one, as phase 7c does), the
+    counts set to 0 just before and read just after (B1 twice a forward:
+    the box and the mask branch);
+    bbox and ``segm/*`` metrics finite; the dump, loaded and rescored,
+    gives the same dict; the first batch in float32 gives identical boxes
+    and masks through the kernels and the plain path.  The host's paste
+    and RLE time a batch is read around ``unletterbox_detections``."""
+    import shutil
+
+    from mx_rcnn_tpu_torch.cli.eval_cli import run_eval
+    from mx_rcnn_tpu_torch.data.datasets import build_dataset
+    from mx_rcnn_tpu_torch.data.loader import eval_index_specs
+    from mx_rcnn_tpu_torch.evalutil import pred_eval
+    from mx_rcnn_tpu_torch.evalutil.detections import load_detections
+
+    cfg, state = trained["cfg"], trained["state"]
+    with torch.no_grad():
+        head = state.model.box_head.cls_score
+        head.weight[1:5] = head.weight[0]
+        head.bias[1:5] = head.bias[0] + 1.0
+    n, batch = (4 if rehearsal else 16), cfg.model.test.per_device_batch
+    work = os.path.join(ROOT, "runs", f"chip_smoke_mask_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    unletterbox, host = pred_eval.unletterbox_detections, []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = unletterbox(*args, **kw)
+        host.append(time.perf_counter() - t0)
+        return out
+
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        dump = os.path.join(work, "dets.json")
+        pred_eval.unletterbox_detections = timed
+        t0 = time.perf_counter()
+        try:
+            metrics = run_eval(cfg, state=state, limit=n, device=dev, dump_path=dump)
+        finally:
+            pred_eval.unletterbox_detections = unletterbox
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        roidb = build_dataset(cfg.data, train=False).roidb()[:n]
+        dumped = load_detections(dump)
+        rescored = pred_eval.evaluate_detections(dumped, roidb, cfg.model.num_classes)
+        n_dets = sum(len(d["scores"]) for d in dumped.values())
+        n_masks = sum(len(d.get("masks", ())) for d in dumped.values())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    segm = {k: v for k, v in metrics.items() if k.startswith("segm/")}
+    host_ms = 1e3 * sum(host) * batch / max(len(host), 1)
+    log(f"[mask:eval] {n} synthetic images, batch {batch}: {n / wall:.2f} img/s end to end "
+        f"({wall:.2f} s, model build and rendering included); host paste and RLE "
+        f"{host_ms:.2f} ms a batch; {n_dets} detections, {n_masks} masks; launches {launches}; "
+        f"dump rescored equal={rescored == metrics}; metrics {json.dumps(metrics, sort_keys=True)}")
+    if not segm or not all(np.isfinite(v) for v in metrics.values()) or rescored != metrics \
+            or not n_dets or n_masks != n_dets:
+        raise AssertionError("mask eval: no segm metrics, non-finite metrics, no detections, a "
+                             "detection without its mask, or the dump rescores apart")
+    forwards = len(eval_index_specs(roidb, cfg.data, batch))
+    if not rehearsal and launches["roi_align"] != 2 * forwards:
+        raise AssertionError(f"mask eval: B1 launched {launches['roi_align']} times, not twice "
+                             f"in each of {forwards} forwards (the box and the mask branch)")
+    first_batch_reference(dev, cfg, state.model.state_dict(), roidb, batch, "mask:eval")
+    return {"launches": launches, "img_s": n / wall, "metrics": metrics, "host_ms": host_ms}
+
+
+def mask_kernels(dev, rehearsal: bool, serve: dict, trained: dict) -> dict:
+    """Phase 7e (d): B1 at 14x14 on (a)'s detection boxes and on (b)'s last
+    fg prefix, bf16 (the paths' dtype, within one bf16 ulp) and f32
+    (bitwise), and B2 at 14x14 on (b)'s last mask cotangent, each against
+    its plain version and timed as in phase 3: the kernels line's
+    ``@mask`` entries."""
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    s = trained["cfg"].model.mask.pooled_size
+    fwd = {}
+    for case, (pyr, rois) in (("detections", serve["pool"]), ("fg_prefix", trained["pool"])):
+        for dt, name in ((torch.bfloat16, case), (torch.float32, f"f32_{case}")):
+            res = hold_fwd({l: f.to(dt) for l, f in pyr.items()}, rois, s, 2, clock, iters,
+                           plain_iters)
+            if dt == torch.float32:    # bitwise in float32
+                res["match"] = res["match"] and res["max_abs_err"] == 0.0
+            fwd[name] = res
+            log(f"[kernel:roi_align@mask:{name}] {res['shape']} S={s}: match={res['match']} "
+                f"max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
+                f"kernel_ms={res['kernel_ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+                f"bound_ms={res['bound'][0]:.4f}")
+    args = trained["step_args"]
+    bwd = hold_bwd(args, clock, iters, plain_iters)
+    log(f"[kernel:roi_align_bwd@mask:fg_prefix] {bwd['shape']} S={args[4].shape[2]}: "
+        f"match={bwd['match']} max_abs_err={bwd['max_abs_err']:.3g} ms={bwd['ms']:.4f} "
+        f"kernel_ms={bwd['kernel_ms']:.4f} plain_ms={bwd['plain_ms']:.4f} "
+        f"bound_ms={bwd['bound'][0]:.4f}")
+    return {"roi_align@mask": kernel_entry(fwd),
+            "roi_align_bwd@mask": kernel_entry({"fg_prefix": bwd})}
+
+
+def mask_phase(dev, rehearsal: bool, seed: int) -> dict:
+    """Phase 7e: mask_r50_fpn_coco at full width, random weights from the
+    seed: (a) serve (:func:`mask_serve`), (b) 3 train steps through
+    ``train/loop.py::train`` on the synthetic set with its octagon masks
+    (800x1344, batch 2, compact RPN loss, mixed policy): ``MaskLogLoss``
+    finite and above 0 in every step, every trainable parameter (the mask
+    head's all) moved and the frozen groups bitwise, B1 and B2 twice a
+    step; (c) evaluate (:func:`mask_eval`); (d) B1 and B2 at 14x14
+    (:func:`mask_kernels`).  The rehearsal cuts it as phase 7c.  Returns
+    the paths' launches and the kernels' entries."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
+    )
+
+    t_phase = time.perf_counter()
+    counters = {"roi_align": multilevel_roi_align_cuda, "fused_middle": fused_middle_levels,
+                "nms": nms_mask_cuda, "roi_align_bwd": multilevel_roi_align_bwd_cuda}
+    serve = mask_serve(dev, rehearsal, seed, counters)
+    cfg = apply_overrides(get_config(MASK_CONFIG), [
+        "model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic",
+        "train.log_every=1", *c4_overrides(rehearsal)])
+    pooled = []
+    with captured_pool(pooled, mask_pool(cfg.model.mask.pooled_size)):
+        # At the rehearsal's 192x256 no sampled roi reaches P5, so the bias
+        # of that FPN output gets no gradient.
+        trained = train_run(dev, rehearsal, cfg, "mask:train", 3, unmoved=1 if rehearsal else 0,
+                            per_step=2, bwd_size=cfg.model.mask.pooled_size)
+    trained["pool"] = pooled[0]
+    losses = [m["MaskLogLoss"] for m in trained["lines"]]
+    log(f"[mask:train] MaskLogLoss a step {[round(x, 4) for x in losses]}")
+    if not all(np.isfinite(x) and x > 0 for x in losses):
+        raise AssertionError(f"mask train: MaskLogLoss {losses}")
+    evaluated = mask_eval(dev, rehearsal, trained, counters)
+    trained["state"] = None
+    kernels = mask_kernels(dev, rehearsal, serve, trained)
+    paths = {"mask_full": {"launches": serve["full"]["launches"]},
+             "mask_proposals": {"launches": serve["proposals"]["launches"]},
+             "mask_train": {"launches": trained["launches"]},
+             "mask_eval": {"launches": evaluated["launches"]}}
+    for p in paths.values():
+        p["launches"] = {k: p["launches"].get(k, 0) for k in counters}
+    log(f"[mask] phase 7e in {time.perf_counter() - t_phase:.2f} s; serving latency ms per "
+        f"request {serve['full']['latency_ms']} (full), {serve['proposals']['latency_ms']} "
+        f"(proposals); train {trained['s_per_step']:.4f} s a step after the first, "
+        f"data_stall_ms {trained['data_stall_ms']:.2f}, peak memory "
+        f"{trained['peak_gib']:.2f} GiB; eval {evaluated['img_s']:.2f} img/s, host paste and "
+        f"RLE {evaluated['host_ms']:.2f} ms a batch")
+    return {"paths": paths, "kernels": kernels}
+
+
 # The kernels of the main paths: source, the TPU kernel it replaces, and
 # the paths that launch it.  (``roi_align_f32`` and ``roi_align_bwd_f32``
 # are checked as well, but the paths run bf16, so they are no entries of
@@ -2260,18 +2542,23 @@ def fast_kernels(dev, rehearsal: bool, cfg, model, alt: dict, records: list,
 FAST_PATHS = {"roi_align": ("fast_alt", "fast_ingraph", "fast_pipe"),
               "roi_align_bwd": ("fast_alt", "fast_ingraph"),
               "fused_middle": ("fast_alt", "fast_ingraph"), "nms": ("fast_pipe",)}
+MASK_PATHS = {"roi_align": ("mask_full", "mask_train", "mask_eval"),
+              "roi_align_bwd": ("mask_train",), "fused_middle": ("mask_full",),
+              "nms": ("mask_proposals",)}
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
                   ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval",
-                   *FAST_PATHS["roi_align"])),
+                   *FAST_PATHS["roi_align"], *MASK_PATHS["roi_align"])),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                       "mx_rcnn_tpu/ops/pallas/roi_align.py:623",
-                      ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"])),
+                      ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"],
+                       *MASK_PATHS["roi_align_bwd"])),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
                      "mx_rcnn_tpu/ops/pallas/middle.py:145",
-                     ("full", "c4_full", *FAST_PATHS["fused_middle"])),
+                     ("full", "c4_full", *FAST_PATHS["fused_middle"],
+                      *MASK_PATHS["fused_middle"])),
     "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75",
-            ("proposals", "c4_proposals", *FAST_PATHS["nms"])),
+            ("proposals", "c4_proposals", *FAST_PATHS["nms"], *MASK_PATHS["nms"])),
 }
 # Phase c4's entries: the same kernels at the single-level C4 shapes,
 # counted over phase c4's paths alone.
@@ -2284,6 +2571,11 @@ KERNELS.update({
 # Phase 7d's entries: the kernels on the Fast R-CNN and alternate paths'
 # inputs, counted over phase 7d's paths alone.
 KERNELS.update({f"{k}@fast": (*KERNELS[k][:2], on) for k, on in FAST_PATHS.items()})
+# Phase 7e's entries: B1 and B2 at the mask branch's 14x14, counted over
+# phase 7e's paths alone (both output sizes: a path launches B1 at 7 and
+# at 14 in one forward).
+KERNELS.update({f"{k}@mask": (*KERNELS[k][:2], MASK_PATHS[k])
+                for k in ("roi_align", "roi_align_bwd")})
 
 
 PKG = "mx_rcnn_tpu_torch"
@@ -2448,12 +2740,15 @@ def main() -> int:
     fast = fast_rcnn_phase(dev, args.cpu_rehearsal, args.seed,
                            {k: kernels[k]["extra"]["chunk_step_us"] for k in ("fused_middle", "nms")})
     paths.update(fast["paths"])
+    mask = mask_phase(dev, args.cpu_rehearsal, args.seed)
+    paths.update(mask["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)
     parent = parent_phase(dev, args.parent, kernels) if args.parent else {}
     kernels.update(c4["kernels"])
     kernels.update(fast["kernels"])
+    kernels.update(mask["kernels"])
 
     line = []
     for name, (source, replaces, on) in KERNELS.items():

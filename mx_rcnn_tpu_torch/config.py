@@ -104,6 +104,20 @@ class RCNNConfig:
 
 
 @dataclass(frozen=True)
+class MaskConfig:
+    """The Mask R-CNN branch: ``num_convs`` 3x3 convs of ``channels``, a
+    2x2 stride-2 deconv and a 1x1 conv to the classes, on rois pooled at
+    ``pooled_size``; gt masks cropped to ``resolution`` (2 x pooled)."""
+
+    enabled: bool = False
+    pooled_size: int = 14
+    channels: int = 256
+    num_convs: int = 4
+    resolution: int = 28
+    loss_weight: float = 1.0
+
+
+@dataclass(frozen=True)
 class TestConfig:
     # Eval images per call (cli/eval_cli.py's batch).
     per_device_batch: int = 8
@@ -132,6 +146,7 @@ class ModelConfig:
     anchors: AnchorConfig = field(default_factory=AnchorConfig)
     rpn: RPNConfig = field(default_factory=RPNConfig)
     rcnn: RCNNConfig = field(default_factory=RCNNConfig)
+    mask: MaskConfig = field(default_factory=MaskConfig)
     test: TestConfig = field(default_factory=TestConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
 
@@ -233,12 +248,13 @@ def _c4_model(num_classes: int, backbone: str) -> ModelConfig:
     )
 
 
-def _fpn_model(num_classes: int, backbone: str) -> ModelConfig:
+def _fpn_model(num_classes: int, backbone: str, mask: bool = False) -> ModelConfig:
     return ModelConfig(
         num_classes=num_classes,
         backbone=BackboneConfig(name=backbone),
         fpn=FPNConfig(enabled=True),
         anchors=AnchorConfig(scales=(8.0,)),
+        mask=MaskConfig(enabled=mask),
     )
 
 
@@ -290,6 +306,8 @@ _PRESETS = {
     "r101_coco": lambda: _coco("r101_coco", _c4_model(81, "resnet101")),
     "r101_fpn_coco": lambda: _coco("r101_fpn_coco", _fpn_model(81, "resnet101")),
     "r50_fpn_coco": lambda: _coco("r50_fpn_coco", _fpn_model(81, "resnet50")),
+    "mask_r50_fpn_coco": lambda: _coco("mask_r50_fpn_coco",
+                                       _fpn_model(81, "resnet50", mask=True)),
     "tiny_synthetic": _tiny_synthetic,
 }
 

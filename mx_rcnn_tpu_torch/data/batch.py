@@ -2,8 +2,10 @@
 (copy of ``mx_rcnn_tpu/data/batch.py``).  Fields are torch tensors on the
 device the graph runs on; serving fills only ``images`` and ``image_hw``.
 ``ext_rois``/``ext_valid`` carry external proposals (Fast R-CNN mode:
-``detection/graph.py`` samples or scores them in place of the RPN's).
-The JAX batch's mask field belongs to Mask R-CNN, which is not ported."""
+``detection/graph.py`` samples or scores them in place of the RPN's);
+``gt_masks`` the gt instance masks of Mask R-CNN training.  The fields
+are those of the JAX batch, ``gt_masks`` last (the JAX batch holds it
+after ``gt_valid``)."""
 
 from __future__ import annotations
 
@@ -26,3 +28,7 @@ class Batch(NamedTuple):
     # RPN's in-graph proposals.
     ext_rois: Optional[Any] = None    # (B, R, 4) float32
     ext_valid: Optional[Any] = None   # (B, R) bool
+    # Each gt slot's instance mask rasterized over its box
+    # (data/loader.py::GT_MASK_SIZE square), zero for ignore and padding
+    # slots; None without Mask R-CNN.
+    gt_masks: Optional[Any] = None    # (B, G, Hm, Wm) float32 in [0, 1]

@@ -4,13 +4,14 @@
 * :class:`SyntheticDataset`: deterministic images with filled,
   class-textured rectangles on a noise background, rendered in numpy
   exactly as the JAX package renders them with ``dtype="uint8"`` (its
-  "classic" palette), so both packages see the same pixels and boxes for
-  the same (seed, index).  The "wheel" palette and float32 pixels are not
+  "classic" palette), so both packages see the same pixels, boxes and
+  instance masks (an octagon inset in each box, as COCO polygons) for the
+  same (seed, index).  The "wheel" palette and float32 pixels are not
   ported: the port's loader takes uint8 only.
 * :class:`CocoDataset`: COCO detection annotations read with ``json``
   (no pycocotools), the 91 sparse category ids mapped to 1..80; crowd
-  annotations kept as ignore regions.  Segmentations are not read (Mask
-  R-CNN is not ported).
+  annotations kept as ignore regions, each box's ``segmentation``
+  (polygons or RLE) kept for Mask R-CNN.
 * :class:`VocDataset`: PASCAL VOC annotations read with ``xml.etree``;
   difficult objects kept as ignore regions unless ``use_diff``.
 
@@ -77,9 +78,21 @@ class SyntheticDataset:
             boxes.append([x1, y1, x1 + bw - 1, y1 + bh - 1])
             classes.append(cls)
         img = np.clip(np.round(img), 0, 255).astype(np.uint8)
-        return RoiRecord(image_id=str(idx), image_path="", height=h, width=w,
-                         boxes=np.asarray(boxes, np.float32),
-                         gt_classes=np.asarray(classes, np.int32), image_array=img)
+        boxes = np.asarray(boxes, np.float32)
+        # Instance masks: an octagon inset in each box (so a mask is not
+        # its box), COCO polygons, in the JAX package's float32 arithmetic.
+        masks = []
+        for (x1, y1, x2, y2) in boxes:
+            bw, bh = x2 - x1, y2 - y1
+            cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+            poly = []
+            for dx, dy in ((-.5, -.25), (-.25, -.5), (.25, -.5), (.5, -.25),
+                           (.5, .25), (.25, .5), (-.25, .5), (-.5, .25)):
+                poly += [cx + dx * bw, cy + dy * bh]
+            masks.append([poly])
+        return RoiRecord(image_id=str(idx), image_path="", height=h, width=w, boxes=boxes,
+                         gt_classes=np.asarray(classes, np.int32), masks=masks,
+                         image_array=img)
 
     def roidb(self) -> list[RoiRecord]:
         return [self.record(i) for i in range(self.num_images)]
@@ -110,13 +123,14 @@ class CocoDataset:
         for img_id, im in self._images.items():
             # Crowd annotations are kept as ignore regions, after the others.
             anns = sorted(self._anns.get(img_id, []), key=lambda a: bool(a.get("iscrowd", 0)))
-            boxes, classes, crowd = [], [], []
+            boxes, classes, masks, crowd = [], [], [], []
             for a in anns:
                 x, y, bw, bh = a["bbox"]
                 if bw < 1 or bh < 1:
                     continue
                 boxes.append([x, y, x + max(bw - 1, 0), y + max(bh - 1, 0)])
                 classes.append(self.cat_to_label[a["category_id"]])
+                masks.append(a.get("segmentation"))
                 crowd.append(bool(a.get("iscrowd", 0)))
             out.append(RoiRecord(
                 image_id=str(img_id),
@@ -124,6 +138,7 @@ class CocoDataset:
                 height=im["height"], width=im["width"],
                 boxes=np.asarray(boxes, np.float32).reshape(-1, 4),
                 gt_classes=np.asarray(classes, np.int32),
+                masks=masks or None,
                 ignore=np.asarray(crowd, bool),
             ))
         return out
@@ -184,7 +199,7 @@ class VocDataset:
 # Bump when roidb PARSING changes (crowd ordering, box conventions, new
 # RoiRecord fields): the fingerprint only sees the annotation files, so a
 # parser fix must invalidate existing caches itself.
-_CACHE_VERSION = 2
+_CACHE_VERSION = 3
 
 
 class _CachedRoidb:

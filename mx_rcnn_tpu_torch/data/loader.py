@@ -22,8 +22,11 @@ Both take external proposals (:func:`load_proposals`'s pkl) for Fast
 R-CNN mode: each record's boxes ride the gt boxes' geometry (flip in
 original coordinates, the letterbox scale), best ``num_proposals`` by
 score, clipped to the resized image and zero-padded with ``ext_valid``.
-Not ported: the prefetch thread, the thread pool, the input service, the
-tensor cache, masks and the chaos hooks.
+With ``with_masks`` each gt slot also carries its instance mask,
+rasterized on the host over the box at ``GT_MASK_SIZE`` square
+(:func:`rasterize_mask`, numpy: the card's machine has no cv2), mirrored
+with a flipped record.  Not ported: the prefetch thread, the thread pool,
+the input service, the tensor cache and the chaos hooks.
 """
 
 from __future__ import annotations
@@ -49,8 +52,13 @@ from mx_rcnn_tpu_torch.data.transforms import (
     resize_linear,
     resize_scale,
 )
+from mx_rcnn_tpu_torch.evalutil.masks import fill_polygons, resize_bilinear, rle_decode
 
 log = logging.getLogger("mx_rcnn_tpu_torch")
+
+# Box-relative resolution of the gt instance masks; the graph crops them
+# to the mask head's grid a sampled roi (detection/graph.py::crop_gt_masks).
+GT_MASK_SIZE = 112
 
 
 def load_proposals(path: str) -> dict:
@@ -122,6 +130,33 @@ def annotation_error(rec: RoiRecord) -> Optional[str]:
     return None
 
 
+def rasterize_mask(seg, box: np.ndarray) -> np.ndarray:
+    """A segmentation -> its (GT_MASK_SIZE,) * 2 float32 mask over ``box``
+    (original coordinates, inclusive extent): polygons scaled into the
+    grid, rounded and filled; an uncompressed RLE decoded, cropped to the
+    box and resized bilinearly.  None (no segmentation) and a compressed
+    RLE give zeros, as in JAX."""
+    out = np.zeros((GT_MASK_SIZE, GT_MASK_SIZE), np.float32)
+    if seg is None:
+        return out
+    x1, y1, x2, y2 = box
+    bw, bh = max(x2 - x1 + 1, 1.0), max(y2 - y1 + 1, 1.0)
+    if isinstance(seg, list):  # polygons in image coordinates
+        polys = []
+        for p in seg:
+            pts = np.asarray(p, np.float32).reshape(-1, 2)
+            pts[:, 0] = (pts[:, 0] - x1) / bw * GT_MASK_SIZE
+            pts[:, 1] = (pts[:, 1] - y1) / bh * GT_MASK_SIZE
+            polys.append(pts.round().astype(np.int32))
+        out[fill_polygons(polys, GT_MASK_SIZE, GT_MASK_SIZE)] = 1.0
+    elif isinstance(seg, dict) and isinstance(seg["counts"], list):
+        full = rle_decode(seg).astype(np.float32)
+        crop = full[int(max(y1, 0)):int(y2) + 1, int(max(x1, 0)):int(x2) + 1]
+        if crop.size:
+            out = resize_bilinear(crop, GT_MASK_SIZE, GT_MASK_SIZE)
+    return out
+
+
 def roidb_with_ignore(roidb: Sequence[RoiRecord], bad: Sequence[str] = ()) -> bool:
     """Whether batches of ``roidb`` carry ``gt_ignore``: decided once over
     the whole roidb (records whose ids are in ``bad``, blanked at
@@ -181,7 +216,8 @@ def _pixels_ok(rec: RoiRecord) -> tuple[np.ndarray, bool]:
 def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
              flips: Optional[Sequence[bool]] = None, with_ignore: Optional[bool] = None,
              load: Callable[[RoiRecord], tuple[np.ndarray, bool]] = _pixels_ok,
-             proposals: Optional[dict] = None, num_proposals: int = 0) -> Batch:
+             proposals: Optional[dict] = None, num_proposals: int = 0,
+             with_masks: bool = False) -> Batch:
     """One batch on ``device`` from uint8 records of one orientation.
 
     ``with_ignore``: whether the batch carries ``gt_ignore``, which the
@@ -194,7 +230,11 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
     whose boxes and classes are kept but whose gt slots are all invalid.
     ``proposals``: a :func:`load_proposals` map; the batch then carries
     ``ext_rois``/``ext_valid`` of ``num_proposals`` rows an image
-    (:func:`external_rois`), looked up by ``image_id``, a stand-in's too."""
+    (:func:`external_rois`), looked up by ``image_id``, a stand-in's too.
+    ``with_masks``: the batch carries ``gt_masks``, each real gt slot's
+    segmentation rasterized over its unflipped box (:func:`rasterize_mask`)
+    and mirrored when the record is flipped; ignore and padding slots,
+    and a record without masks, stay zero."""
     canvases = {record_canvas(cfg, rec) for rec in records}
     if len(canvases) > 1:
         raise ValueError(f"records of two orientations in one batch (canvases "
@@ -202,7 +242,7 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
     if with_ignore is None:
         with_ignore = roidb_with_ignore(records)
     g = cfg.max_gt_boxes
-    images, hws, boxes, classes, valid, ignore, ext = [], [], [], [], [], [], []
+    images, hws, boxes, classes, valid, ignore, ext, masks = [], [], [], [], [], [], [], []
     for rec, flip in zip(records, flips or [False] * len(records), strict=True):
         pixels, ok = load(rec)
         if pixels.dtype != np.uint8:
@@ -231,6 +271,14 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
         classes.append(gc)
         valid.append(gv)
         ignore.append(gi)
+        if with_masks:
+            gm = np.zeros((g, GT_MASK_SIZE, GT_MASK_SIZE), np.float32)
+            if rec.masks is not None:
+                for i in range(n):
+                    if not ign[i]:  # an ignore slot is never a mask target
+                        m = rasterize_mask(rec.masks[i], rec.boxes[i])
+                        gm[i] = m[:, ::-1] if flip else m
+            masks.append(gm)
         if proposals is not None:
             ext.append(external_rois(rec, proposals, num_proposals, flip, scale, nh, nw))
     return Batch(
@@ -242,6 +290,7 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
         gt_ignore=torch.tensor(np.stack(ignore), device=device) if with_ignore else None,
         ext_rois=torch.tensor(np.stack([r for r, _ in ext]), device=device) if ext else None,
         ext_valid=torch.tensor(np.stack([v for _, v in ext]), device=device) if ext else None,
+        gt_masks=torch.tensor(np.stack(masks), device=device) if with_masks else None,
     )
 
 
@@ -272,13 +321,15 @@ class DetectionLoader:
 
     ``proposals`` (Fast R-CNN mode): a :func:`load_proposals` map holding
     every record of the roidb (checked here), ``num_proposals`` rows an
-    image in each batch's ``ext_rois``."""
+    image in each batch's ``ext_rois``.  ``with_masks``: batches carry
+    ``gt_masks`` (:func:`assemble`); a quarantined record's are zero."""
 
     def __init__(self, roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int, device,
                  seed: int = 0, quarantine_path: Optional[str] = None,
                  io_retries: int = 2, proposals: Optional[dict] = None,
-                 num_proposals: int = 0) -> None:
+                 num_proposals: int = 0, with_masks: bool = False) -> None:
         self.cfg = cfg
+        self.with_masks = with_masks
         self.batch_size = batch_size
         self.device = device
         self.seed = seed
@@ -368,7 +419,7 @@ class DetectionLoader:
         recs = [self._usable(self.roidb[j]) for j in idxs]
         return assemble(recs, self.cfg, self.device, flips, self.with_ignore,
                         load=self._load_image, proposals=self.proposals,
-                        num_proposals=self.num_proposals)
+                        num_proposals=self.num_proposals, with_masks=self.with_masks)
 
     def _usable(self, rec: RoiRecord) -> RoiRecord:
         """The record, or for quarantined annotations a blank stand-in with
@@ -377,7 +428,8 @@ class DetectionLoader:
             return rec
         return dataclasses.replace(rec, boxes=np.zeros((0, 4), np.float32),
                                    gt_classes=np.zeros((0,), np.int32), ignore=None,
-                                   image_array=self._blank_pixels(rec), image_path="")
+                                   masks=None, image_array=self._blank_pixels(rec),
+                                   image_path="")
 
     @staticmethod
     def _blank_pixels(rec: RoiRecord) -> np.ndarray:
@@ -442,7 +494,8 @@ def eval_batches(roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int,
     ``(batch, records)``, the batch padded to ``batch_size``.  Whether
     batches carry ``gt_ignore`` is decided over the whole roidb, as the
     train loader decides it.  ``proposals``: as :class:`DetectionLoader`'s
-    (checked before the first batch), never flipped."""
+    (checked before the first batch), never flipped.  Eval batches carry
+    no ``gt_masks``: segm scoring reads the gt masks from the roidb."""
     if proposals is not None:
         require_proposals(roidb, proposals)
     bad = [r.image_id for r in roidb if annotation_error(r) is not None]

@@ -1,9 +1,9 @@
-"""The roidb record contract (copy of ``mx_rcnn_tpu/data/roidb.py``
-without instance masks, which belong to Mask R-CNN, not ported yet).
+"""The roidb record contract (copy of ``mx_rcnn_tpu/data/roidb.py``).
 
 One record per image: its id, where its pixels come from (a file, or an
-in-memory array for synthetic data), its true size, and its gt boxes and
-1-based classes in original image coordinates.  COCO crowd and VOC
+in-memory array for synthetic data), its true size, its gt boxes and
+1-based classes in original image coordinates, and, for Mask R-CNN, each
+box's segmentation as COCO keeps it (a list of polygons, or an RLE dict).  COCO crowd and VOC
 difficult regions stay in the record as ``ignore`` flags: training keeps
 them out of the negatives and evaluation ignore-matches them.  Readers put
 non-ignore boxes first, so truncating the gt slots sheds ignore regions
@@ -27,6 +27,10 @@ class RoiRecord:
     boxes: np.ndarray          # (n, 4) float32 x1 y1 x2 y2, unflipped coords
     gt_classes: np.ndarray     # (n,) int32, 1-based foreground labels
     flipped: bool = False
+    # One segmentation a box, in image coordinates: a list of polygons
+    # [x0, y0, x1, y1, ...] or a COCO RLE dict; None when the dataset has
+    # none (data/loader.py rasterizes them box-relative).
+    masks: Optional[list] = None
     # In-memory image for synthetic data: (H, W, 3) uint8.
     image_array: Optional[np.ndarray] = field(default=None, repr=False)
     # (n,) bool: COCO crowd / VOC difficult regions; None means all False.

@@ -1,7 +1,8 @@
 """The assembled two-stage detector (port of
 ``mx_rcnn_tpu/detection/detector.py``).
 
-Owns the parameterized pieces (backbone, FPN, heads); the parameter-free
+Owns the parameterized pieces (backbone, FPN, heads, and the mask head
+when ``mask.enabled``); the parameter-free
 detection logic lives in :mod:`mx_rcnn_tpu_torch.detection.graph`.  With
 ``fpn.enabled`` off it is the single-level C4 recipe: no FPN, and the RPN
 and ROIAlign both read the backbone's stride-16 level 4 (ResNet's C4 or
@@ -16,7 +17,14 @@ import torch
 from torch import nn
 
 from mx_rcnn_tpu_torch.config import ModelConfig
-from mx_rcnn_tpu_torch.models import FPN, BoxHead, RPNHead, backbone_channels, build_backbone
+from mx_rcnn_tpu_torch.models import (
+    FPN,
+    BoxHead,
+    MaskHead,
+    RPNHead,
+    backbone_channels,
+    build_backbone,
+)
 from mx_rcnn_tpu_torch.utils.precision import policy_of
 
 
@@ -54,6 +62,11 @@ class TwoStageDetector(nn.Module):
             cfg.rcnn.class_agnostic, dtype=dtype, out_dtype=out_dtype,
             device=device,
         )
+        if cfg.mask.enabled:
+            self.mask_head = MaskHead(
+                cfg.num_classes, channels, cfg.mask.channels, cfg.mask.num_convs,
+                dtype=dtype, out_dtype=out_dtype, device=device,
+            )
 
     @property
     def feature_levels(self) -> tuple[int, ...]:
@@ -89,3 +102,7 @@ class TwoStageDetector(nn.Module):
     def box(self, pooled: torch.Tensor):
         """pooled (R, S, S, C) -> (cls_logits (R, C), deltas (R, C or 1, 4))."""
         return self.box_head(pooled)
+
+    def mask(self, pooled: torch.Tensor) -> torch.Tensor:
+        """pooled (R, S, S, C) -> mask logits (R, 2S, 2S, num_classes)."""
+        return self.mask_head(pooled)

@@ -9,8 +9,11 @@ weights; call the inference functions under ``torch.inference_mode()``.
 draws come in as :class:`Draws` or a ``torch.Generator``.  A batch with
 ``ext_rois`` runs Fast R-CNN mode: training samples the external
 proposals in place of the RPN's (and drops the RPN from the graph when
-``rpn.loss_weight`` is 0), inference scores them.  The mask branch is
-not ported.  One feature level (the C4 recipe) takes the single-level
+``rpn.loss_weight`` is 0), inference scores them.  With ``mask.enabled``
+(Mask R-CNN) training pools the sampled fg rois a second time at
+``mask.pooled_size`` through the same ROIAlign (kernels B1 and B2) and
+adds the mask loss, and inference pools the final detections for their
+masks.  One feature level (the C4 recipe) takes the single-level
 proposals and ROIAlign; several, the FPN ones.
 
 Shape conventions: B = batch, G = max gt boxes, A = anchors over levels,
@@ -21,7 +24,7 @@ background 0.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,6 +52,8 @@ class Detections(NamedTuple):
     scores: torch.Tensor   # (B, D)
     classes: torch.Tensor  # (B, D) int32, 1-based foreground ids
     valid: torch.Tensor    # (B, D) bool
+    # (B, D, M, M) mask probabilities of each detection's class (Mask R-CNN)
+    masks: Optional[torch.Tensor] = None
 
 
 @lru_cache(maxsize=64)
@@ -178,7 +183,9 @@ def _check_ext(batch: Batch) -> bool:
 def forward_inference(model, batch: Batch, pixel_stats=None) -> Detections:
     """Full inference: backbone -> RPN -> proposals -> ROIAlign -> box
     head -> NMS (``test.nms_mode``: fused class-offset or per class) ->
-    top-D, padded with a valid mask.  A batch with ``ext_rois`` skips the
+    top-D, padded with a valid mask; with ``mask.enabled`` each of the D
+    slots also gets the sigmoid of its class's mask logits
+    (``Detections.masks``).  A batch with ``ext_rois`` skips the
     RPN and scores those rois (Fast R-CNN testing, the reference's
     ``test_rcnn --has_rpn false``)."""
     cfg = model.cfg
@@ -201,7 +208,12 @@ def forward_inference(model, batch: Batch, pixel_stats=None) -> Detections:
     # the heads emit.
     cls_prob = torch.softmax(cls_logits.float(), dim=-1).reshape(b, r, cfg.num_classes)
     box_deltas = box_deltas.float().reshape(b, r, -1, 4)
-    return Detections(*post(cfg, props.rois, props.valid, cls_prob, box_deltas, batch.image_hw))
+    dets = Detections(*post(cfg, props.rois, props.valid, cls_prob, box_deltas, batch.image_hw))
+    if cfg.mask.enabled:
+        # Boxes first, then one mask a detection slot, valid or not.
+        own = _own_class(_mask_logits(model, feats, dets.boxes), dets.classes)
+        dets = dets._replace(masks=torch.sigmoid(own))
+    return dets
 
 
 def forward_proposals(model, batch: Batch, pixel_stats=None) -> Proposals:
@@ -295,6 +307,88 @@ def _postprocess_one_fused(cfg: ModelConfig, rois, roi_valid, probs, deltas, ima
         torch.where(valid, torch.gather(cls, 1, out_i), 0).to(torch.int32),
         valid,
     )
+
+
+# ---------------------------------------------------------------------------
+# Mask branch (Mask R-CNN)
+
+
+def crop_gt_masks(gt_masks, gt_boxes, gt_idx, rois, out_size: int) -> torch.Tensor:
+    """Bilinear crop of each roi's matched gt mask to the mask head's grid.
+
+    The gt masks are rasterized over their boxes (``data/loader.py``,
+    the box's inclusive extent ``x2 - x1 + 1``); the centres of the roi's
+    ``out_size`` x ``out_size`` grid map into that frame, and points
+    outside the gt box are background (0).
+
+    gt_masks (B, G, Hm, Wm), gt_boxes (B, G, 4), gt_idx (B, R), rois
+    (B, R, 4) -> (B, R, out_size, out_size) float32 in [0, 1]."""
+    hm, wm = gt_masks.shape[-2:]
+    b, r = gt_idx.shape
+    idx = gt_idx.long()
+    masks = gt_masks[torch.arange(b, device=idx.device)[:, None], idx]   # (B, R, Hm, Wm)
+    boxes = torch.gather(gt_boxes, 1, idx[..., None].expand(b, r, 4))
+    bw = torch.clamp(boxes[..., 2] - boxes[..., 0] + 1.0, min=1e-3)[..., None]
+    bh = torch.clamp(boxes[..., 3] - boxes[..., 1] + 1.0, min=1e-3)[..., None]
+    grid = (torch.arange(out_size, dtype=torch.float32, device=rois.device) + 0.5) / out_size
+    ys = rois[..., 1:2] + grid * (rois[..., 3:4] - rois[..., 1:2])          # (B, R, M)
+    xs = rois[..., 0:1] + grid * (rois[..., 2:3] - rois[..., 0:1])
+    v = (ys - boxes[..., 1:2]) / bh * hm - 0.5                               # mask pixel coords
+    u = (xs - boxes[..., 0:1]) / bw * wm - 0.5
+    inside = ((v > -1.0) & (v < hm))[..., :, None] & ((u > -1.0) & (u < wm))[..., None, :]
+    v = torch.clamp(v, 0.0, hm - 1.0)
+    u = torch.clamp(u, 0.0, wm - 1.0)
+    v0, u0 = torch.floor(v).long(), torch.floor(u).long()
+    lv, lu = v - v0, u - u0
+    v1, u1 = torch.clamp(v0 + 1, max=hm - 1), torch.clamp(u0 + 1, max=wm - 1)
+
+    def at(vi, ui):          # masks[b, r, vi[b, r, i], ui[b, r, j]] -> (B, R, M, M)
+        rows = torch.gather(masks, 2, vi[..., None].expand(b, r, out_size, wm))
+        return torch.gather(rows, 3, ui[..., None, :].expand(b, r, out_size, out_size))
+
+    val = (
+        at(v0, u0) * (1 - lv)[..., :, None] * (1 - lu)[..., None, :]
+        + at(v0, u1) * (1 - lv)[..., :, None] * lu[..., None, :]
+        + at(v1, u0) * lv[..., :, None] * (1 - lu)[..., None, :]
+        + at(v1, u1) * lv[..., :, None] * lu[..., None, :]
+    )
+    return val * inside
+
+
+def _mask_logits(model, feats, rois: torch.Tensor) -> torch.Tensor:
+    """rois (B, R, 4) pooled at ``mask.pooled_size`` (ROIAlign, kernels B1
+    and B2) through the mask head -> logits (B, R, M, M, C)."""
+    cfg = model.cfg
+    sm = cfg.mask.pooled_size
+    pooled = _pool_rois_impl(cfg, feats, rois.contiguous(), sm, model.roi_levels)
+    logits = model.mask(pooled.reshape(-1, sm, sm, pooled.shape[-1]))
+    return logits.reshape(*rois.shape[:2], *logits.shape[1:])
+
+
+def _own_class(logits: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+    """logits (B, R, M, M, C), classes (B, R) -> each roi's own-class
+    channel (B, R, M, M) in float32."""
+    b, r = classes.shape
+    bi = torch.arange(b, device=logits.device)[:, None]
+    ri = torch.arange(r, device=logits.device)[None, :]
+    return logits[bi, ri, :, :, classes.long()].float()
+
+
+def optax_sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable sigmoid cross-entropy (optax's formulation)."""
+    return torch.clamp(logits, min=0.0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+
+
+def _mask_loss(mask_logits, samples: RoiSamples, gt_masks, gt_boxes, resolution: int):
+    """Per-image binary CE on each fg roi's own-class mask channel,
+    averaged over its pixels and over the image's fg rois.
+
+    mask_logits (B, R, M, M, C) on the fg prefix of ``samples`` (R rows
+    an image) -> (B,) float32."""
+    targets = crop_gt_masks(gt_masks, gt_boxes, samples.gt_indices, samples.rois, resolution)
+    per_roi = optax_sigmoid_ce(_own_class(mask_logits, samples.labels), targets).mean(dim=(2, 3))
+    w = (samples.fg_mask & (samples.label_weights > 0)).to(torch.float32)
+    return torch.sum(per_roi * w, dim=1) / torch.clamp(torch.sum(w, dim=1), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -410,10 +504,15 @@ def forward_train(model, batch: Batch, draws, pixel_stats=None):
     proposals (and the gt).  Fast R-CNN mode, ``rpn.loss_weight`` 0: the
     RPN head never runs, its three metrics are exact zeros and its
     parameters get no gradient (``None``).  Joint mode, a positive
-    weight: the RPN keeps its losses, only the sampling changes."""
+    weight: the RPN keeps its losses, only the sampling changes.
+
+    With ``mask.enabled`` and ``batch.gt_masks``, the first
+    ``roi_batch_size * fg_fraction`` sampled rois an image (the sampler
+    puts every fg roi there) are pooled at ``mask.pooled_size`` and go
+    through the mask head; their loss against the cropped gt masks,
+    averaged over the batch, is ``MaskLogLoss`` and adds
+    ``mask.loss_weight`` times itself to ``loss``."""
     cfg = model.cfg
-    if getattr(batch, "gt_masks", None) is not None:
-        raise NotImplementedError("Batch.gt_masks: Mask R-CNN is not ported")
     use_ext = _check_ext(batch)
     images = prep_images(batch.images, pixel_stats)
     feats = model.features(images)
@@ -479,4 +578,13 @@ def forward_train(model, batch: Batch, draws, pixel_stats=None):
         "RCNNL1Loss": rcnn_box,
         "loss": total,
     }
+
+    if cfg.mask.enabled and batch.gt_masks is not None:
+        n_fg = max(int(rc.roi_batch_size * rc.fg_fraction), 1)
+        fg = RoiSamples(*(x[:, :n_fg] for x in samples))
+        mask_loss = torch.mean(_mask_loss(_mask_logits(model, feats, fg.rois), fg,
+                                          batch.gt_masks, batch.gt_boxes, cfg.mask.resolution))
+        total = total + cfg.mask.loss_weight * mask_loss
+        metrics["MaskLogLoss"] = mask_loss
+        metrics["loss"] = total
     return total, metrics

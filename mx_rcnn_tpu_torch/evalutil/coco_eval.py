@@ -1,6 +1,6 @@
 """Self-contained COCO-style detection evaluator (numpy; copy of
-``mx_rcnn_tpu/evalutil/coco_eval.py``, boxes only: the segm metric waits
-for Mask R-CNN).
+``mx_rcnn_tpu/evalutil/coco_eval.py``): the bbox metric, and with
+``iou_type="segm"`` the segm metric on RLE masks.
 
 Re-implements the COCO bbox metric from its public definition — the
 reference reaches it through vendored pycocotools
@@ -20,6 +20,8 @@ from __future__ import annotations
 from collections import defaultdict
 
 import numpy as np
+
+from mx_rcnn_tpu_torch.evalutil.masks import rle_area, rle_iou
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
@@ -113,7 +115,10 @@ class CocoEvaluator:
     per-category AP.  Labels are contiguous 1-based category indices.
     """
 
-    def __init__(self, num_classes: int) -> None:
+    def __init__(self, num_classes: int, iou_type: str = "bbox") -> None:
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"iou_type must be bbox|segm, got {iou_type!r}")
+        self.iou_type = iou_type
         self.num_classes = num_classes  # incl. background 0
         # (cat, image) → dict(dt=..., gt=..., iou=...)
         self._dts: dict = defaultdict(list)
@@ -130,6 +135,8 @@ class CocoEvaluator:
         det_classes: np.ndarray,  # (n,) 1-based
         gt_boxes: np.ndarray,     # (m, 4)
         gt_classes: np.ndarray,   # (m,)
+        det_masks: list | None = None,  # n RLE dicts (segm mode)
+        gt_masks: list | None = None,   # m RLE dicts (segm mode)
         gt_crowd: np.ndarray | None = None,  # (m,) bool iscrowd flags
     ) -> None:
         det_boxes = np.asarray(det_boxes, float).reshape(-1, 4)
@@ -137,13 +144,23 @@ class CocoEvaluator:
         if gt_crowd is None:
             gt_crowd = np.zeros(len(gt_boxes), bool)
         gt_crowd = np.asarray(gt_crowd, bool).reshape(len(gt_boxes))
+        if self.iou_type == "segm" and (det_masks is None or gt_masks is None):
+            raise ValueError("segm evaluation needs det_masks and gt_masks RLEs")
         for c in range(1, self.num_classes):
             dm = np.flatnonzero(np.asarray(det_classes) == c)
             gm = np.flatnonzero(np.asarray(gt_classes) == c)
             if dm.size:
-                self._dts[(c, image_id)] = (det_boxes[dm], np.asarray(det_scores, float)[dm])
+                self._dts[(c, image_id)] = (
+                    det_boxes[dm],
+                    np.asarray(det_scores, float)[dm],
+                    [det_masks[i] for i in dm] if det_masks is not None else None,
+                )
             if gm.size:
-                self._gts[(c, image_id)] = (gt_boxes[gm], gt_crowd[gm])
+                self._gts[(c, image_id)] = (
+                    gt_boxes[gm],
+                    [gt_masks[i] for i in gm] if gt_masks is not None else None,
+                    gt_crowd[gm],
+                )
             if dm.size or gm.size:
                 self._cat_images[c][image_id] = None
 
@@ -163,15 +180,23 @@ class CocoEvaluator:
         dt = self._dts.get(key)
         gt = self._gts.get(key)
         if dt is None:
-            dboxes, dscores = np.zeros((0, 4)), np.zeros(0)
+            dboxes, dscores, dmasks = np.zeros((0, 4)), np.zeros(0), []
         else:
-            dboxes, dscores = dt
+            dboxes, dscores, dmasks = dt
             order = np.argsort(-dscores, kind="mergesort")[: MAX_DETS[-1]]
             dboxes, dscores = dboxes[order], dscores[order]
-        gboxes, g_crowd = gt if gt is not None else (np.zeros((0, 4)), np.zeros(0, bool))
-        garea = (gboxes[:, 2] - gboxes[:, 0]) * (gboxes[:, 3] - gboxes[:, 1])
-        darea = (dboxes[:, 2] - dboxes[:, 0]) * (dboxes[:, 3] - dboxes[:, 1])
-        ious = _xyxy_iou(dboxes, gboxes)
+            dmasks = [dmasks[i] for i in order] if dmasks is not None else []
+        gboxes, gmasks, g_crowd = (
+            gt if gt is not None else (np.zeros((0, 4)), [], np.zeros(0, bool))
+        )
+        if self.iou_type == "segm":
+            garea = np.asarray([rle_area(m) for m in (gmasks or [])], float).reshape(len(gboxes))
+            darea = np.asarray([rle_area(m) for m in dmasks], float).reshape(len(dboxes))
+            ious = rle_iou(dmasks, gmasks or [])
+        else:
+            garea = (gboxes[:, 2] - gboxes[:, 0]) * (gboxes[:, 3] - gboxes[:, 1])
+            darea = (dboxes[:, 2] - dboxes[:, 0]) * (dboxes[:, 3] - dboxes[:, 1])
+            ious = _xyxy_iou(dboxes, gboxes)
         if g_crowd.any() and len(dboxes):
             # Crowd overlap is intersection-over-det-area (pycocotools
             # iou(..., iscrowd=1)): recover the intersection from the IoU

@@ -1,5 +1,5 @@
 """Detection result caching (dump / load / re-eval); copy of
-``mx_rcnn_tpu/evalutil/detections.py`` (masks, Mask R-CNN's, not ported).
+``mx_rcnn_tpu/evalutil/detections.py``.
 
 Replaces the reference's ``all_boxes`` pickle written by ``pred_eval`` and
 re-scored by ``rcnn/tools/reeval.py``.  Format: one JSON-serializable dict
@@ -15,7 +15,8 @@ import numpy as np
 
 
 def save_detections(path: str, per_image: dict[str, dict]) -> None:
-    """per_image: image_id → {"boxes": (n,4), "scores": (n,), "classes": (n,)}."""
+    """per_image: image_id → {"boxes": (n,4), "scores": (n,), "classes": (n,)}
+    plus optional "masks": list of RLE dicts (instance segmentation)."""
     ser = {}
     for k, v in per_image.items():
         entry = {
@@ -23,6 +24,11 @@ def save_detections(path: str, per_image: dict[str, dict]) -> None:
             "scores": np.asarray(v["scores"], float).reshape(-1).tolist(),
             "classes": np.asarray(v["classes"], int).reshape(-1).tolist(),
         }
+        if "masks" in v:
+            entry["masks"] = [
+                {"size": list(m["size"]), "counts": np.asarray(m["counts"]).tolist()}
+                for m in v["masks"]
+            ]
         ser[k] = entry
     with open(path, "w") as f:
         json.dump(ser, f)
@@ -41,6 +47,11 @@ def detections_from_json(raw: dict) -> dict[str, dict]:
             "scores": np.asarray(v["scores"], np.float32).reshape(-1),
             "classes": np.asarray(v["classes"], np.int32).reshape(-1),
         }
+        if "masks" in v:
+            entry["masks"] = [
+                {"size": tuple(m["size"]), "counts": np.asarray(m["counts"], np.uint32)}
+                for m in v["masks"]
+            ]
         out[k] = entry
     return out
 

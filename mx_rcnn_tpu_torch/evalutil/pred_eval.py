@@ -1,11 +1,12 @@
 """The evaluation loop: model -> detections -> dataset metric (port of
-``mx_rcnn_tpu/evalutil/pred_eval.py``, boxes only).
+``mx_rcnn_tpu/evalutil/pred_eval.py``).
 
 NMS and score thresholding happen in the graph (``forward_inference``);
 here the detections go back to original image coordinates (the
-reference's ``/ im_scale``) and into the COCO or VOC evaluator.  Not
-ported: sharded and resumable evaluation, visualisation, submission files
-and the segm metric.
+reference's ``/ im_scale``), a Mask R-CNN's masks pasted and RLE-encoded,
+and into the COCO (bbox, and ``segm/*`` when the detections carry masks)
+or VOC evaluator.  Not ported: sharded and resumable evaluation,
+visualisation and submission files.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from mx_rcnn_tpu_torch.config import DataConfig
 from mx_rcnn_tpu_torch.data.loader import record_scale
 from mx_rcnn_tpu_torch.evalutil.coco_eval import CocoEvaluator
 from mx_rcnn_tpu_torch.evalutil.detections import save_detections
+from mx_rcnn_tpu_torch.evalutil.masks import gt_record_rles
 from mx_rcnn_tpu_torch.evalutil.postprocess import unletterbox_detections
 from mx_rcnn_tpu_torch.evalutil.voc_eval import voc_mean_ap
 
@@ -27,17 +29,20 @@ def collect_detections(eval_step: Callable, model, batches: Iterable, data_cfg: 
     """Run ``eval_step(model, batch)`` over ``(batch, records)`` pairs
     (``data/loader.py::eval_batches``) -> image_id -> detections in
     original image coordinates.  A padded batch's extra rows are dropped:
-    only its records are read back."""
+    only its records are read back; a detection's mask, when the model
+    has the mask branch, is pasted into its image and kept as an RLE."""
     out: dict[str, dict] = {}
     done = 0
     for batch, recs in batches:
         dets = eval_step(model, batch)
         n = len(recs)
         boxes, scores, classes, valid = (x[:n].cpu().numpy() for x in dets[:4])
+        masks = dets.masks[:n].cpu().numpy() if dets.masks is not None else None
         for i, rec in enumerate(recs):
             out[rec.image_id] = unletterbox_detections(
                 boxes[i], scores[i], classes[i], valid[i],
                 record_scale(data_cfg, rec), rec.height, rec.width,
+                masks=masks[i] if masks is not None else None, encode_rle=True,
             )
             done += 1
             if progress:
@@ -49,9 +54,14 @@ def evaluate_detections(per_image: dict[str, dict], roidb, num_classes: int,
                         style: str = "coco", class_names: Optional[tuple] = None,
                         use_07_metric: bool = False) -> dict[str, float]:
     """Score detections against the roidb's gt (callable on loaded
-    detections with no model)."""
+    detections with no model).  COCO style: when any image's detections
+    carry masks, the segm metric too, its numbers as ``segm/<name>``,
+    against the records' gt masks (``evalutil/masks.py::gt_record_rles``);
+    an image entry without masks scores its gt as misses."""
     if style == "coco":
         ev = CocoEvaluator(num_classes)
+        have_masks = any("masks" in d for d in per_image.values())
+        seg_ev = CocoEvaluator(num_classes, iou_type="segm") if have_masks else None
         for rec in roidb:
             d = per_image.get(
                 rec.image_id,
@@ -59,7 +69,21 @@ def evaluate_detections(per_image: dict[str, dict], roidb, num_classes: int,
             )
             ev.add_image(rec.image_id, d["boxes"], d["scores"], d["classes"],
                          rec.boxes, rec.gt_classes, gt_crowd=rec.ignore_flags)
-        return ev.summarize()
+            if seg_ev is not None:
+                has_m, z = "masks" in d, np.zeros(0)
+                seg_ev.add_image(
+                    rec.image_id,
+                    d["boxes"] if has_m else np.zeros((0, 4)),
+                    d["scores"] if has_m else z,
+                    d["classes"] if has_m else z,
+                    rec.boxes, rec.gt_classes,
+                    det_masks=d.get("masks", []), gt_masks=gt_record_rles(rec),
+                    gt_crowd=rec.ignore_flags,
+                )
+        metrics = ev.summarize()
+        if seg_ev is not None:
+            metrics.update({f"segm/{k}": v for k, v in seg_ev.summarize().items()})
+        return metrics
     if style == "voc":
         all_dets: dict[int, dict] = {c: {} for c in range(1, num_classes)}
         all_gt: dict[int, dict] = {c: {} for c in range(1, num_classes)}

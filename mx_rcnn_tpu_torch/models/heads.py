@@ -1,4 +1,4 @@
-"""RPN and box heads (port of ``mx_rcnn_tpu/models/heads.py``).
+"""RPN, box and mask heads (port of ``mx_rcnn_tpu/models/heads.py``).
 
 The RPN head runs once per level (the JAX package's ``RPNHead.packed`` is
 a TPU repacking of the same computation and is not carried over).
@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mx_rcnn_tpu_torch.models.layers import Conv2d, Dense
+from mx_rcnn_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Dense
 
 
 class RPNHead(nn.Module):
@@ -56,3 +56,29 @@ class BoxHead(nn.Module):
         logits = self.cls_score(x)
         deltas = self.bbox_pred(x).reshape(r, self.n_reg, 4)
         return logits.to(self.out_dtype), deltas.to(self.out_dtype)
+
+
+class MaskHead(nn.Module):
+    """Mask R-CNN's head: ``num_convs`` 3x3 convs + ReLU, a 2x2 stride-2
+    deconv + ReLU, a 1x1 conv to ``num_classes`` mask logits."""
+
+    def __init__(self, num_classes: int, cin: int = 256, channels: int = 256,
+                 num_convs: int = 4, dtype: torch.dtype = torch.bfloat16,
+                 out_dtype: torch.dtype = torch.float32, device=None) -> None:
+        super().__init__()
+        self.out_dtype = out_dtype
+        self.num_convs = num_convs
+        kw = dict(dtype=dtype, device=device)
+        for i in range(num_convs):
+            setattr(self, f"conv{i + 1}", Conv2d(cin if i == 0 else channels, channels, 3, **kw))
+        self.deconv = ConvTranspose2d(channels, channels, 2, **kw)
+        self.mask_logits = Conv2d(channels, num_classes, 1, **kw)
+
+    def forward(self, rois: torch.Tensor) -> torch.Tensor:
+        """rois (R, S, S, C) pooled NHWC -> (R, 2S, 2S, num_classes) mask
+        logits, NHWC."""
+        x = rois.permute(0, 3, 1, 2)
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"conv{i + 1}")(x))
+        x = F.relu(self.deconv(x))
+        return self.mask_logits(x).permute(0, 2, 3, 1).to(self.out_dtype)

@@ -41,6 +41,29 @@ class Conv2d(nn.Module):
         )
 
 
+class ConvTranspose2d(nn.Module):
+    """k x k transposed convolution at stride k (no overlap, output k x the
+    input), weight (I, O, k, k) as ``torch.nn.ConvTranspose2d`` keeps it:
+    flax's ``ConvTranspose`` kernel is the same taps flipped in both
+    spatial axes (``weights.py`` converts)."""
+
+    def __init__(self, cin: int, cout: int, k: int, dtype: torch.dtype = torch.float32,
+                 device=None) -> None:
+        super().__init__()
+        self.stride = k
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.zeros(cin, cout, k, k, device=device).to(memory_format=torch.channels_last)
+        )
+        self.bias = nn.Parameter(torch.zeros(cout, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype),
+            stride=self.stride,
+        )
+
+
 class Dense(nn.Module):
     """y = x W^T + b with W (out, in)."""
 

@@ -153,7 +153,9 @@ class DetectorRunner:
     def run(self, mode: str, bucket: tuple[int, int],
             images: Sequence[np.ndarray]) -> list[dict]:
         """Serve a micro-batch of (H, W, 3) images through a warmed program;
-        one dict per image in original image coordinates."""
+        one dict per image in original image coordinates ("boxes",
+        "scores", "classes"; a Mask R-CNN's detection programs add "masks",
+        one pasted (h, w) bool mask a detection)."""
         if (mode, bucket) not in self._warmed:
             raise EngineUnavailable(
                 f"program ({mode}, {bucket}) was never warmed — refusing to "
@@ -180,7 +182,7 @@ class DetectorRunner:
             image_hw=torch.tensor(hw, dtype=torch.float32, device=self.device),
         )
         out = self._execute(mode, batch)
-        out = type(out)(*(t.cpu().numpy() for t in out))
+        out = type(out)(*(None if t is None else t.cpu().numpy() for t in out))
         return [self._postprocess(mode, out, i, scales[i], *orig[i])
                 for i in range(len(images))]
 
@@ -207,8 +209,10 @@ class DetectorRunner:
                 "scores": out.scores[i][valid],
                 "classes": np.zeros(int(valid.sum()), np.int32),
             }
+        masks = getattr(out, "masks", None)
         return unletterbox_detections(out.boxes[i], out.scores[i], out.classes[i],
-                                      out.valid[i], scale, height, width)
+                                      out.valid[i], scale, height, width,
+                                      masks=masks[i] if masks is not None else None)
 
 
 class InferenceRequest:

@@ -215,7 +215,8 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
             roidb, cfg.data, global_batch, dev, seed=cfg.train.seed,
             quarantine_path=f"{run_dir}/quarantine.jsonl" if workdir else None,
             proposals=load_proposals(proposals_path) if proposals_path else None,
-            num_proposals=cfg.model.rpn.train_post_nms_top_n)
+            num_proposals=cfg.model.rpn.train_post_nms_top_n,
+            with_masks=cfg.model.mask.enabled)
 
     start = state.step
     writer = None

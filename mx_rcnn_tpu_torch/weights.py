@@ -11,6 +11,13 @@ with dots, with two renames and one transpose:
   * a ``kernel`` becomes a ``weight``: conv HWIO -> OIHW (the inverse of
     ``mx_rcnn_tpu/train/import_torch.py``), dense (in, out) -> (out, in);
   * FrozenBN ``scale/bias/mean/var`` are buffers under the same names.
+
+The mask head's deconv is the one exception to the kernel rule: a flax
+``ConvTranspose`` kernel (kh, kw, in, out) holds the taps flipped in both
+spatial axes against ``torch.nn.functional.conv_transpose2d``'s weight
+(in, out, kh, kw), so it converts as ``K[::-1, ::-1].transpose(2, 3, 0,
+1)``.  At 256 -> 256 channels the plain HWIO -> OIHW transpose has the
+same shape and would load without complaint.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from mx_rcnn_tpu_torch.config import ModelConfig
 
 _RENAME = {"rpn": "rpn_head"}
 _UNRENAME = {v: k for k, v in _RENAME.items()}
+# state_dict keys whose flax kernel is a ConvTranspose's.
+_TRANSPOSED = ("mask_head.deconv.weight",)
 
 
 def _flatten(tree, prefix=()):
@@ -59,7 +68,11 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
             path = (_RENAME.get(path[0], path[0]),) + path[1:]
             arr = np.asarray(leaf)
             if path[-1] == "kernel":
-                path, arr = path[:-1] + ("weight",), _to_torch_layout(arr)
+                path = path[:-1] + ("weight",)
+                if ".".join(path) in _TRANSPOSED:
+                    arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)   # flipped HWIO -> IOHW
+                else:
+                    arr = _to_torch_layout(arr)
             key = ".".join(path)
             if key in out:
                 raise ValueError(f"two variables map to {key}")
@@ -78,7 +91,9 @@ def to_jax_variables(state_dict) -> dict:
         prefix = ".".join(path[:-1])
         coll = "constants" if f"{prefix}.var" in state_dict else "params"
         arr = value.detach().cpu().numpy()
-        if path[-1] == "weight":
+        if key in _TRANSPOSED:
+            path, arr = path[:-1] + ["kernel"], arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif path[-1] == "weight":
             path, arr = path[:-1] + ["kernel"], _to_jax_layout(arr)
         path[0] = _UNRENAME.get(path[0], path[0])
         node = tree[coll]
@@ -89,7 +104,8 @@ def to_jax_variables(state_dict) -> dict:
 
 
 # Flax's initializers (models/heads.py:24-25): normal(0.01) for the RPN
-# conv/objectness and cls_score, normal(0.001) for the regressors.
+# conv/objectness, cls_score and every mask head kernel, normal(0.001) for
+# the regressors.
 _NORMAL_STD = {
     "rpn_head.conv.weight": 0.01,
     "rpn_head.objectness.weight": 0.01,
@@ -119,8 +135,9 @@ def init_variables(cfg: ModelConfig, generator: torch.Generator) -> dict[str, to
                 value.fill_(1.0 if leaf in ("scale", "var") else 0.0)
             elif leaf == "bias":
                 value.zero_()
-            elif key in _NORMAL_STD:
-                torch.nn.init.normal_(value, 0.0, _NORMAL_STD[key], generator=generator)
+            elif key in _NORMAL_STD or key.startswith("mask_head."):
+                torch.nn.init.normal_(value, 0.0, _NORMAL_STD.get(key, 0.01),
+                                      generator=generator)
             else:
                 fan_in = math.prod(t.shape[1:])
                 std = math.sqrt(1.0 / fan_in) / _TRUNC_STD

@@ -281,7 +281,7 @@ def test_forward_inference_on_ext_rois_matches_jax():
             TG.forward_inference(model, batch._replace(ext_valid=None), STATS)
     for i in range(2):
         ref = unletterbox_detections(*(np.asarray(x[i]) for x in want[:4]), 1.0, 128, 128)
-        out = unletterbox_detections(*(x[i].numpy() for x in got), 1.0, 128, 128)
+        out = unletterbox_detections(*(x[i].numpy() for x in got[:4]), 1.0, 128, 128)
         assert len(ref["scores"]) > 10
         assert match_fraction(ref, out, min_iou=0.9, score_tol=1e-3) >= 0.9
         # Every detection decodes from an external roi: none from the RPN.

@@ -506,6 +506,57 @@ def test_roi_align_bwd_kernel_one_level_c4(cuda, c, dtype):
     assert bool((diff <= tol).all())
 
 
+# Mask R-CNN's branch pools at 14x14 (28 samples an axis at sampling
+# ratio 2): 100 detections an image when serving, the 128-roi fg prefix
+# an image when training.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rois_per_image", [100, 128])
+def test_roi_align_kernel_mask_14(cuda, rois_per_image, dtype):
+    rng = np.random.RandomState(rois_per_image)
+    got = _hold_fwd(_pyramid(rng, 256, dtype), _random_rois(rng, rois_per_image), 14, 2)
+    assert got.shape == (2, rois_per_image, 14, 14, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "crowded", "straddle"])
+def test_roi_align_bwd_kernel_mask_14(cuda, kind, dtype):
+    rng = np.random.RandomState(len(kind) + 14)
+    shapes = {l: (320 >> l, 448 >> l) for l in (2, 3, 4, 5)}
+    if kind == "random":
+        _, rois, _, _ = _bwd_case(cuda, 8, rois_per_image=128, seed=14)
+    else:
+        rois = _bwd_rois(kind, rng, rois_per_image=128)
+    li = roi_level_index(rois, (2, 3, 4, 5))
+    g = torch.tensor(rng.randn(2, 128, 14, 14, 256), dtype=torch.float32, device=cuda).to(dtype)
+    got = multilevel_roi_align_bwd_cuda(shapes, dtype, rois, li, g)
+    again = multilevel_roi_align_bwd_cuda(shapes, dtype, rois, li, g)
+    torch.cuda.synchronize()
+    want = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float())
+    scale = multilevel_roi_align_bwd_plain(shapes, torch.float32, rois, li, g.float().abs())
+    for l in shapes:
+        assert torch.equal(got[l], again[l])                      # deterministic
+        diff = (got[l].float() - want[l]).abs()
+        tol = 1e-5 * float(scale[l].max().clamp(min=1.0))
+        if dtype == torch.bfloat16:
+            tol = _ulp(want[l]) + tol
+        assert bool((diff <= tol).all()), l
+
+
+def test_roi_align_function_gradient_mask_14(cuda):
+    """The autograd Function at output size 14: B1 forward, B2 backward,
+    against autograd of the plain forward."""
+    rng = np.random.RandomState(28)
+    pyr = {l: t.requires_grad_() for l, t in _pyramid(rng, 64, torch.float32).items()}
+    rois = _random_rois(rng, 50)
+    out = multilevel_roi_align_fast(pyr, rois, 14, 2, "pallas")
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, list(pyr.values()), g)
+    ref = {l: t.detach().clone().requires_grad_() for l, t in pyr.items()}
+    want = torch.autograd.grad(multilevel_roi_align_plain(ref, rois, 14, 2), list(ref.values()), g)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-5 * max(float(b.abs().max()), 1.0)
+
+
 def test_fused_middle_kernel_one_level_k6000(cuda):
     """B3 at L = 1 and the C4 pre-NMS top-n, k = 6000: 94 chunk steps."""
     an, dl, ts, hw = _middle_case(np.random.RandomState(6000), 2, 1, 6000)

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``mx_rcnn_tpu_torch/`` and nothing
-in ``chip_smoke.py`` imports jax, flax or the JAX package (an AST scan of
-every import statement, including imports inside functions)."""
+in ``chip_smoke.py`` imports jax, flax or the JAX package, nor cv2, which
+the card's machine lacks (an AST scan of every import statement,
+including imports inside functions)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mx_rcnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mx_rcnn_tpu", "cv2")
 PORT_FILES = sorted((ROOT / "mx_rcnn_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -39,6 +40,8 @@ def test_port_file_imports_no_jax(path):
 def test_scan_sees_the_port_and_catches_a_violation(tmp_path):
     assert len(PORT_FILES) > 20
     bad = tmp_path / "bad.py"
-    bad.write_text("def f():\n    from mx_rcnn_tpu.ops import nms\n    import jax.numpy\n")
-    assert [m for m in _imported_modules(bad) if _forbidden(m)] == ["mx_rcnn_tpu.ops", "jax.numpy"]
+    bad.write_text("def f():\n    from mx_rcnn_tpu.ops import nms\n    import jax.numpy\n"
+                   "    import cv2\n")
+    assert [m for m in _imported_modules(bad) if _forbidden(m)] == ["mx_rcnn_tpu.ops", "jax.numpy",
+                                                                   "cv2"]
     assert not _forbidden("mx_rcnn_tpu_torch.ops")
