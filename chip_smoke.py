@@ -31,8 +31,10 @@ when every phase passed):
    sizes; the larger must take longer.
 4. Serve ``r50_fpn_coco`` at full width with random weights from a seed:
    an engine with ``serve.fused_middle=on`` and batch 2 (the ``full``
-   program: B1 + B3), and one with ``rpn.nms_impl=pallas`` (the
-   ``proposals`` program: B4, one launch a request).  Each path runs with
+   program: B1 + B3), and a runner with ``rpn.nms_impl=pallas`` whose
+   ``proposals`` program is reached as the JAX engine reaches it below
+   its ladder, through ``runner.run("proposals", ...)`` (B4, one launch a
+   request; :func:`proposals_path`).  Each path runs with
    the launch counts set to 0 just before it and read just after; every
    kernel of a path must have launched.  Every response must be finite
    with boxes inside its image, and the full path must return detections.
@@ -81,9 +83,10 @@ when every phase passed):
 7c. The single-level C4 family (:func:`c4_phase`), ``vgg16_voc07`` and
    ``r101_coco`` at full width, random weights from the seed:
    (a) serve: an engine with ``serve.fused_middle=on`` at batch 2 (the
-   ``full`` program: B1 on one level, B3 at L = 1, k = 6000) and one with
-   ``rpn.nms_impl=pallas`` (the ``proposals`` program: B4 on one level,
-   n = 6000), counts set to 0 before each path and read after, every
+   ``full`` program: B1 on one level, B3 at L = 1, k = 6000) and a runner
+   with ``rpn.nms_impl=pallas`` (its ``proposals`` program through
+   ``runner.run``, as in phase 4: B4 on one level, n = 6000), counts set to
+   0 before each path and read after, every
    kernel launched, responses finite and inside their images, the full
    path returning detections (classes 1-4 favoured), latency printed;
    one ``r101_fpn_coco`` request rides with the full path.  (b) 3 train
@@ -130,9 +133,10 @@ when every phase passed):
    pooling at 14x14), random weights from the seed: (a) serve: an engine
    with ``serve.fused_middle=on`` at batch 2 (the ``full`` program: B1 at
    7x7 and 14x14, B3), every response with one (h, w) bool mask a
-   detection (classes 1-4 favoured), and one with ``rpn.nms_impl=pallas``
-   (the ``proposals`` program: B4), counts set to 0 before each path and
-   read after.  (b) 3 train steps through ``train/loop.py::train`` on the
+   detection (classes 1-4 favoured), and a runner with
+   ``rpn.nms_impl=pallas`` (its ``proposals`` program through
+   ``runner.run``, as in phase 4: B4), counts set to 0 before each path
+   and read after.  (b) 3 train steps through ``train/loop.py::train`` on the
    synthetic set and its octagon masks, compact RPN loss, mixed policy:
    ``MaskLogLoss`` finite and above 0 in every step, every trainable
    parameter (the mask head's all) moved, the frozen groups bitwise, B1
@@ -147,6 +151,47 @@ when every phase passed):
    cotangent, each against its plain version and timed as in phase 3:
    the ``kernels`` line's ``@mask`` entries.  Phase 7e's launches count
    in B1-B4's entries as well.  The rehearsal cuts it as 7c.
+7f. The serving engine's single-card surface (:func:`ladder_phase`),
+   ``r50_fpn_coco`` at full width, random weights from the seed (classes
+   1-4 favoured), ``build_engine`` with ``serve.fused_middle=on``, batch
+   2, buckets 800x1344 and 512x864, ``int8_head`` and ``int8_network``:
+   (1) the six levels and 8 programs, warmed, the seconds printed; (2)
+   every program through ``runner.run`` on four portrait COCO-sized
+   images: responses finite and inside their images, detections from all
+   but ``proposals``, at most 25 an image from ``reduced``, class 0 only
+   from ``proposals``, B3 and (but for ``proposals``) B1 launched by each
+   program's calls; each program's time a call and device time; the q8
+   gates: the int8 head's logits and deltas within 0.05 x max|ref| of the
+   model's head on the ``full`` call's pooled features (the JAX
+   package's test); the served ``full_q8n`` bitwise the ``full`` program
+   of a runner on the dequantized int8 weights, and unlike the served
+   ``full``; and the JAX test's gate, ``full_q8n``'s mean AP against
+   ``full`` at least 0.85, on the float32 network (the bf16 readings and
+   their noise floor printed beside it); (3) the ladder: each level's
+   estimate warmed by
+   requests without a deadline, then a deadline under ``full``'s
+   estimate x headroom served at the first level that fits, and one that
+   nothing fits at ``proposals``; a runner wrapper failing the
+   full-quality program opens the breaker, and the next request is
+   ``full_q8``; (4) packing: five requests behind a held call, two to a
+   call, bitwise those of one request a call; occupancy printed; (5) the
+   weight swap under load to the weights of seed + 1: no failed request,
+   generations 0 then 1 in completion order, each result bitwise its
+   generation's; the swap's seconds and peak memory; (6) the watchdog: a
+   first call behind ``torch.cuda._sleep`` of about 5 s, ``hang_timeout``
+   2 s: DEAD within 2 + 0.25 (+ 1) s, the stuck and the queued requests
+   ``EngineUnavailable``, ``submit`` refused; (7) tenancy
+   (``serve.tenancy.table=a:weight=3,rate=1,burst=2;b:weight=1``): tenant
+   a's third request ``QuotaExceeded`` with ``retry_after_s`` > 0, tenant
+   b served; (8) B1 (bf16 within one ulp, f32 bitwise) and B3 (bitwise) on
+   the 512x864 call's inputs, and B4 (bitwise) on the ``proposals``
+   program of a second runner with ``rpn.nms_impl=pallas`` at that
+   bucket, each timed as in phase 3: the ``kernels`` line's ``@small``
+   entries.  Phase 7f's launches count in B1's, B3's and B4's entries:
+   (2)-(7) from after the warm-up, less the reference runs (the
+   references of (2), the one-a-call runs that (4) and (5) are held
+   against), and B4's on (8)'s ``proposals`` call.  The rehearsal cuts it
+   as phase 7c, with buckets 192x256 and 128x160.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -176,6 +221,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -701,13 +747,16 @@ def serve_path(name, engine, images, counters, timeout) -> dict:
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
+    done = {}
     reqs = [engine.submit(img) for img in images]
+    for r in reqs:
+        r.add_done_callback(lambda q: done.setdefault(id(q), time.monotonic()))
     results = [r.result(timeout) for r in reqs]
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     for img, res in zip(images, results):
         check_response(res, *img.shape[:2])
-    lat = [1e3 * (r.served_at - r.submitted_at) for r in reqs]
+    lat = [1e3 * (done[id(r)] - r.enqueued_at) for r in reqs]
     counts = [len(r["scores"]) for r in results]
     with_masks = all("masks" in r for r in results)
     log(f"[serve:{name}] {len(images)} requests in {wall:.3f} s = {len(images) / wall:.2f} img/s; "
@@ -715,6 +764,39 @@ def serve_path(name, engine, images, counters, timeout) -> dict:
         f"{', each with its masks' if with_masks else ''}; launches {launches}")
     return {"launches": launches, "counts": counts, "latency_ms": [round(x, 1) for x in lat],
             "with_masks": with_masks}
+
+
+def proposals_path(name, dev, base, variables, images, counters) -> dict:
+    """The ``proposals`` program with ``rpn.nms_impl=pallas`` (B4, one launch
+    a request) at batch 1, reached as the JAX engine reaches it below its
+    ladder, through ``runner.run("proposals", ...)`` of a warmed runner, one
+    request a call, with every launch count set to 0 just before and read
+    just after.  Each response finite, inside its image, class 0."""
+    from mx_rcnn_tpu_torch.config import apply_overrides
+    from mx_rcnn_tpu_torch.serve.engine import DetectorRunner
+
+    runner = DetectorRunner(apply_overrides(base, ["model.rpn.nms_impl=pallas"]), variables,
+                            batch_size=1, device=dev)
+    runner.warmup()
+    for fn in counters.values():
+        fn.launches = 0
+    results, lat = [], []
+    t0 = time.perf_counter()
+    for img in images:
+        t = time.perf_counter()
+        results += runner.run("proposals", runner.buckets[0], [img])
+        lat.append(1e3 * (time.perf_counter() - t))
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for img, res in zip(images, results):
+        check_response(res, *img.shape[:2])
+        if (res["classes"] != 0).any():
+            raise AssertionError(f"{name}: a proposal of a class other than 0")
+    counts = [len(r["scores"]) for r in results]
+    log(f"[serve:{name}] {len(images)} requests in {wall:.3f} s = {len(images) / wall:.2f} "
+        f"img/s; latency ms per request {[round(x, 1) for x in lat]}; outputs per request "
+        f"{counts}; launches {launches}")
+    return {"launches": launches, "counts": counts, "latency_ms": [round(x, 1) for x in lat]}
 
 
 def serving_phase(dev, rehearsal: bool, seed: int) -> dict:
@@ -746,9 +828,7 @@ def serving_phase(dev, rehearsal: bool, seed: int) -> dict:
     if sum(out["full"]["counts"]) == 0:
         raise AssertionError("the full path returned no detections")
 
-    prop_cfg = apply_overrides(base, ["model.rpn.nms_impl=pallas"])
-    with build_engine(prop_cfg, variables, batch_size=1, device=dev, mode="proposals") as engine:
-        out["proposals"] = serve_path("proposals", engine, images[:3], counters, timeout)
+    out["proposals"] = proposals_path("proposals", dev, base, variables, images[:3], counters)
     return out
 
 
@@ -1255,28 +1335,62 @@ def roidb_phase(dev, rehearsal: bool, seed: int, steps: int = 8) -> dict:
 
 
 @contextlib.contextmanager
-def captured_postprocess(seen: list):
-    """Append to ``seen`` the arguments of every call of either
-    postprocess of ``detection/graph.py`` (``forward_inference`` looks
-    them up at each call)."""
-    from mx_rcnn_tpu_torch.detection import graph
+def captured(module, names, on_call):
+    """Wrap each ``module.<name>`` for the length of the context (its callers
+    look it up at each call): after every call, ``on_call(name, arguments,
+    result)``, the arguments bound to the signature with defaults applied.
+    The wrapper calls the original, so launch counts count as before."""
+    import inspect
 
-    names = ("_postprocess_one_fused", "_postprocess_one")
-    saved = {name: getattr(graph, name) for name in names}
+    saved = {name: getattr(module, name) for name in names}
 
-    def wrap(name):
-        def call(*args):
-            seen.append(args)
-            return saved[name](*args)
+    def wrap(name, fn):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            on_call(name, bound.arguments, out)
+            return out
         return call
 
-    for name in names:
-        setattr(graph, name, wrap(name))
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
     try:
-        yield seen
+        yield
     finally:
         for name, fn in saved.items():
-            setattr(graph, name, fn)
+            setattr(module, name, fn)
+
+
+def detached(x):
+    """A detached copy of the tensors in ``x`` (tuples, named tuples, dicts)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {k: detached(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = (detached(v) for v in x)
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def keep_last(store: dict):
+    """An ``on_call`` for :func:`captured` that keeps the last call's
+    arguments and result of each name, detached copies, in ``store[name]``."""
+    def on_call(name, arguments, out):
+        store[name] = (detached(tuple(arguments.values())), detached(out))
+    return on_call
+
+
+def captured_postprocess(seen: list):
+    """Append to ``seen`` the arguments of every call of either
+    postprocess of ``detection/graph.py``."""
+    from mx_rcnn_tpu_torch.detection import graph
+
+    return captured(graph, ("_postprocess_one_fused", "_postprocess_one"),
+                    lambda name, arguments, out: seen.append(tuple(arguments.values())))
 
 
 def postprocess_times(dev, rehearsal: bool, args: tuple, label: str) -> dict:
@@ -1564,39 +1678,31 @@ def c4_overrides(rehearsal: bool) -> list[str]:
             "model.test.per_device_batch=2"]
 
 
-@contextlib.contextmanager
 def captured_pool(store: list, wanted=lambda size, levels: len(levels) == 1):
     """Put the pyramid and rois of the last ROIAlign call of
     ``detection/graph.py`` that ``wanted(pooled_size, levels)`` picks (by
-    default the single-level ones) in ``store[0]``, detached copies, and
-    whether B1 read that map eight channels a thread (contiguous, C a
-    multiple of 8, 16-byte aligned) in ``store[1]`` (``forward_train`` and
-    ``forward_inference`` look ``_pool_rois_impl`` up at each call)."""
+    default the single-level ones) in ``store[0]``, whether B1 read that
+    map eight channels a thread (contiguous, C a multiple of 8, 16-byte
+    aligned) in ``store[1]``, and the pooled features in ``store[2]``,
+    detached copies."""
     from mx_rcnn_tpu_torch.detection import graph
 
-    pool = graph._pool_rois_impl
-
-    def capture(cfg, feats, rois, pooled_size, roi_level_set):
-        levels = {l: f for l, f in feats.items() if l in roi_level_set}
-        if wanted(pooled_size, levels):
+    def on_call(name, a, out):
+        levels = {l: f for l, f in a["feats"].items() if l in a["roi_level_set"]}
+        if wanted(a["pooled_size"], levels):
             vec = all(f.is_contiguous() and f.shape[-1] % 8 == 0 and f.data_ptr() % 16 == 0
                       for f in levels.values())
-            store[:] = [({l: f.detach().clone() for l, f in levels.items()},
-                         rois.detach().clone()), vec]
-        return pool(cfg, feats, rois, pooled_size, roi_level_set)
+            store[:] = [(detached(levels), detached(a["rois"])), vec, detached(out)]
 
-    graph._pool_rois_impl = capture
-    try:
-        yield store
-    finally:
-        graph._pool_rois_impl = pool
+    return captured(graph, ("_pool_rois_impl",), on_call)
 
 
 def serve_programs(dev, label: str, base, variables, images, counters, capture) -> dict:
     """The ``full`` program with ``serve.fused_middle=on`` at batch 2 over
-    ``images`` (inside the context ``capture``), then the ``proposals``
-    program with ``rpn.nms_impl=pallas`` at batch 1 over the first three;
-    each path with the counts set to 0 just before and read just after."""
+    ``images`` through the engine (inside the context ``capture``), then the
+    ``proposals`` program with ``rpn.nms_impl=pallas`` at batch 1 over the
+    first three (:func:`proposals_path`); each path with the counts set to 0
+    just before and read just after."""
     from mx_rcnn_tpu_torch.config import apply_overrides
     from mx_rcnn_tpu_torch.serve.engine import build_engine
 
@@ -1607,9 +1713,8 @@ def serve_programs(dev, label: str, base, variables, images, counters, capture) 
         log(f"[{label}:full] warm-up {time.perf_counter() - t0:.1f} s "
             f"(programs {engine.runner.levels()}, bucket {engine.runner.buckets})")
         out["full"] = serve_path(f"{label}:full", engine, images, counters, 600.0)
-    prop_cfg = apply_overrides(base, ["model.rpn.nms_impl=pallas"])
-    with build_engine(prop_cfg, variables, batch_size=1, device=dev, mode="proposals") as engine:
-        out["proposals"] = serve_path(f"{label}:proposals", engine, images[:3], counters, 600.0)
+    out["proposals"] = proposals_path(f"{label}:proposals", dev, base, variables, images[:3],
+                                      counters)
     return out
 
 
@@ -1781,58 +1886,79 @@ def c4_kernels(dev, rehearsal: bool, seed: int, runs: dict, chunk_us: dict) -> d
     return out
 
 
-def proposal_kernels(dev, rehearsal: bool, scores, deltas, anchors, image_hw, rpn, pre: int,
-                     nms_rows: int, chunk_us: dict, tag: str) -> dict:
-    """B3 at L = 1 on the batch and B4 on one level for its first
-    ``nms_rows`` images, at pre-NMS top-n ``pre`` of one level's RPN
-    outputs (scores (B, A), deltas (B, A, 4), anchors (A, 4)), each
-    bitwise against its plain version and timed as in phase 3.
-    ``chunk_us``: phase 3's sweep chunk step of B3 and B4, for their
-    sequential floor; ``tag`` names the entries in the log."""
+def hold_middle(margs, chunk_us: float, clock, iters: int, plain_iters: int) -> dict:
+    """B3 on ``margs`` (stacked anchors, deltas, scores (B, L, k), image_hw,
+    min_size, threshold) bitwise against its plain version, timed as in
+    phase 3, the kernel alone too; ``chunk_us``: phase 3's sweep chunk step,
+    for the sequential floor."""
     from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels, fused_middle_levels_plain
-    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_keep_sorted_cuda, nms_keep_sorted_plain
-    from mx_rcnn_tpu_torch.ops.proposals import _pre_nms_candidates, _topk_candidates
 
-    clock = Clock(dev)
-    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
-    b, thresh, out = scores.shape[0], rpn.nms_threshold, {}
-    ts, td, ta = _topk_candidates(scores, deltas, anchors, pre)
-    margs = (ta[:, None].float(), td[:, None].float(), ts[:, None].float(), image_hw,
-             rpn.min_size, thresh)
     got, want = fused_middle_levels(*margs), fused_middle_levels_plain(*margs)
     same = all(torch.equal(x, y) for x, y in zip(got, want))
-    k = margs[2].shape[-1]
+    b, levels, k = margs[2].shape
     flops = 40 * margs[2].numel() + IOU_FLOPS * greedy_pairs(got[2], torch.isfinite(got[1]))
-    out["fused_middle"] = dict(
+    return dict(
         match=same, max_abs_err=float((got[0] - want[0]).abs().max()),
         ms=clock.ms(lambda: fused_middle_levels(*margs), iters),
         kernel_ms=clock.kernel_ms(lambda: fused_middle_levels(*margs)),
         plain_ms=clock.ms(lambda: fused_middle_levels_plain(*margs), plain_iters),
         bound=bound(nbytes(*margs[:4], *got), flops),
-        extra=dict(chunk_steps=-(-k // 64),
-                   sequential_floor_ms=1e-3 * chunk_us["fused_middle"] * -(-k // 64)),
-        shape=f"B={b} L=1 k={k} (two launches a call)")
+        extra=dict(chunk_steps=-(-k // 64), sequential_floor_ms=1e-3 * chunk_us * -(-k // 64)),
+        shape=f"B={b} L={levels} k={k} (two launches a call)")
+
+
+def hold_nms(nargs, chunk_us: float, clock, iters: int, plain_iters: int) -> dict:
+    """B4 on ``nargs`` (score-sorted boxes (..., n, 4), valid (..., n),
+    threshold) bitwise against its plain version, timed as in phase 3."""
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_keep_sorted_cuda, nms_keep_sorted_plain
+
+    k1, k2 = nms_keep_sorted_cuda(*nargs), nms_keep_sorted_plain(*nargs)
+    n = nargs[0].shape[-2]
+    return dict(
+        match=torch.equal(k1, k2), max_abs_err=float(not torch.equal(k1, k2)),
+        ms=clock.ms(lambda: nms_keep_sorted_cuda(*nargs), iters),
+        kernel_ms=clock.kernel_ms(lambda: nms_keep_sorted_cuda(*nargs)),
+        plain_ms=clock.ms(lambda: nms_keep_sorted_plain(*nargs), plain_iters),
+        bound=bound(nbytes(nargs[0], nargs[1], k1), IOU_FLOPS * greedy_pairs(k1, nargs[1])),
+        extra=dict(chunk_steps=-(-n // 64), sequential_floor_ms=1e-3 * chunk_us * -(-n // 64)),
+        shape=f"B={nargs[0].shape[0]} L={nargs[0].shape[1] if nargs[0].dim() == 4 else 1} "
+              f"n={n} (one launch)")
+
+
+def log_proposal_kernels(found: dict, tag: str) -> None:
+    for key, r in found.items():
+        log(f"[kernel:{key}@{tag}] {r['shape']}: match={r['match']} ms={r['ms']:.4f} "
+            f"kernel_ms={r['kernel_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}); {r['extra']['chunk_steps']} "
+            f"chunk steps, sequential floor {r['extra']['sequential_floor_ms']:.4f} ms")
+
+
+def proposal_kernels(dev, rehearsal: bool, scores, deltas, anchors, image_hw, rpn, pre: int,
+                     nms_rows: int, chunk_us: dict, tag: str) -> dict:
+    """B3 at L = 1 on the batch and B4 on one level for its first
+    ``nms_rows`` images, at pre-NMS top-n ``pre`` of one level's RPN
+    outputs (scores (B, A), deltas (B, A, 4), anchors (A, 4)), each
+    bitwise against its plain version and timed as in phase 3
+    (:func:`hold_middle`, :func:`hold_nms`).  ``chunk_us``: phase 3's sweep
+    chunk step of B3 and B4, for their sequential floor; ``tag`` names the
+    entries in the log."""
+    from mx_rcnn_tpu_torch.ops.proposals import _pre_nms_candidates, _topk_candidates
+
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    thresh = rpn.nms_threshold
+    ts, td, ta = _topk_candidates(scores, deltas, anchors, pre)
+    margs = (ta[:, None].float(), td[:, None].float(), ts[:, None].float(), image_hw,
+             rpn.min_size, thresh)
     rows = slice(0, nms_rows)
     dense = _pre_nms_candidates(scores[rows], deltas[rows], anchors, image_hw[rows], pre,
                                 rpn.min_size)
     order = torch.argsort(-dense[1], dim=-1, stable=True)
     nargs = (torch.gather(dense[0], 1, order[..., None].expand(*order.shape, 4)).contiguous(),
              torch.gather(torch.isfinite(dense[1]), 1, order).contiguous(), thresh)
-    k1, k2 = nms_keep_sorted_cuda(*nargs), nms_keep_sorted_plain(*nargs)
-    out["nms"] = dict(
-        match=torch.equal(k1, k2), max_abs_err=float(not torch.equal(k1, k2)),
-        ms=clock.ms(lambda: nms_keep_sorted_cuda(*nargs), iters),
-        kernel_ms=clock.kernel_ms(lambda: nms_keep_sorted_cuda(*nargs)),
-        plain_ms=clock.ms(lambda: nms_keep_sorted_plain(*nargs), plain_iters),
-        bound=bound(nbytes(nargs[0], nargs[1], k1), IOU_FLOPS * greedy_pairs(k1, nargs[1])),
-        extra=dict(chunk_steps=-(-nargs[0].shape[-2] // 64),
-                   sequential_floor_ms=1e-3 * chunk_us["nms"] * -(-nargs[0].shape[-2] // 64)),
-        shape=f"B={nms_rows} L=1 n={nargs[0].shape[-2]} (one launch)")
-    for key, r in out.items():
-        log(f"[kernel:{key}@{tag}] {r['shape']}: match={r['match']} ms={r['ms']:.4f} "
-            f"kernel_ms={r['kernel_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}); {r['extra']['chunk_steps']} "
-            f"chunk steps, sequential floor {r['extra']['sequential_floor_ms']:.4f} ms")
+    out = {"fused_middle": hold_middle(margs, chunk_us["fused_middle"], clock, iters, plain_iters),
+           "nms": hold_nms(nargs, chunk_us["nms"], clock, iters, plain_iters)}
+    log_proposal_kernels(out, tag)
     return out
 
 
@@ -2304,7 +2430,7 @@ def fast_kernels(dev, rehearsal: bool, cfg, model, alt: dict, records: list,
 
     clock = Clock(dev)
     iters, plain_iters = (2, 1) if rehearsal else (20, 3)
-    (pyr, rois), _ = alt["pool"]
+    (pyr, rois), *_ = alt["pool"]
     fwd = {}
     for dt, case in ((torch.bfloat16, "rcnn1_step"), (torch.float32, "f32_rcnn1_step")):
         res = hold_fwd({l: f.to(dt) for l, f in pyr.items()}, rois, 7, 2, clock, iters,
@@ -2535,6 +2661,604 @@ def mask_phase(dev, rehearsal: bool, seed: int) -> dict:
     return {"paths": paths, "kernels": kernels}
 
 
+# Phase 7f: the serving engine's single-card surface on r50_fpn_coco.
+LADDER_CONFIG = "r50_fpn_coco"
+LADDER_TABLE = "a:weight=3,rate=1,burst=2;b:weight=1"
+
+
+def ladder_buckets(rehearsal: bool) -> list:
+    return [(192, 256), (128, 160)] if rehearsal else [(800, 1344), (512, 864)]
+
+
+def ladder_images(rehearsal: bool, seed: int) -> list:
+    """Four float32 noise requests at portrait COCO sizes, each taller than
+    the small bucket, so that its ``full`` plan is the large bucket and its
+    ``small`` plan the small one (small on the rehearsal)."""
+    sizes = ([(150, 110), (160, 120), (140, 140), (170, 130)] if rehearsal
+             else [(640, 480), (640, 427), (612, 612), (640, 512)])
+    rng = np.random.RandomState(seed + 7)
+    return [rng.uniform(0, 255, (hh, ww, 3)).astype(np.float32) for hh, ww in sizes]
+
+
+def q8n_map(full: list, q8n: list) -> list:
+    """Per-class AP of ``q8n``'s detections scored against ``full``'s as
+    ground truth (score > 0.05), over the same images, with the port's
+    VOC evaluator: the JAX package's PTQ gate (tests/test_precision.py)."""
+    from mx_rcnn_tpu_torch.evalutil.voc_eval import voc_eval
+
+    classes = sorted({int(c) for r in full for c in r["classes"][r["scores"] > 0.05]})
+    aps = []
+    for c in classes:
+        det, gt = {}, {}
+        for i, (f, q) in enumerate(zip(full, q8n)):
+            mf = (f["scores"] > 0.05) & (f["classes"] == c)
+            mq = (q["scores"] > 0.05) & (q["classes"] == c)
+            gt[str(i)] = {"boxes": f["boxes"][mf]}
+            det[str(i)] = np.concatenate([q["boxes"][mq], q["scores"][mq, None]], axis=1)
+        aps.append(float(voc_eval(det, gt)[0]))
+    return aps
+
+
+class _Delegate:
+    """A runner that hands every attribute to ``runner``; subclasses
+    override ``run`` (the engine's fault and hang injections)."""
+
+    def __init__(self, runner) -> None:
+        self.runner = runner
+
+    def __getattr__(self, name):
+        return getattr(self.runner, name)
+
+
+class _FailsFullQuality(_Delegate):
+    """Raises on every call of the full-quality program (levels ``full`` and
+    ``small``), as a failing device path would."""
+
+    def run(self, mode, bucket, images):
+        if mode == "full":
+            raise RuntimeError("injected failure of the full-quality program")
+        return self.runner.run(mode, bucket, images)
+
+
+class _FirstCallSleeps(_Delegate):
+    """Launches ``torch.cuda._sleep(cycles)`` on the card before its first
+    call: a device call that does not return for that long."""
+
+    def __init__(self, runner, cycles: int) -> None:
+        super().__init__(runner)
+        self.cycles, self.slept = cycles, False
+
+    def run(self, mode, bucket, images):
+        if not self.slept:
+            self.slept = True
+            if self.runner.device.type == "cuda":
+                torch.cuda._sleep(self.cycles)
+            else:
+                time.sleep(self.cycles / 1e9)   # the rehearsal's stand-in
+        return self.runner.run(mode, bucket, images)
+
+
+def sleep_cycles(dev, seconds: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that take about ``seconds`` on this
+    card, read from a timed short sleep (1e9 a second on the rehearsal)."""
+    if dev.type != "cuda":
+        return int(seconds * 1e9)
+    probe = 50_000_000
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    torch.cuda.synchronize()
+    return int(probe * seconds * 1e3 / start.elapsed_time(end))
+
+
+def same_result(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in ("boxes", "scores", "classes"))
+
+
+@contextlib.contextmanager
+def uncounted(counters: dict):
+    """Launches inside the context do not count: the counts are read before
+    and set back after (a reference run inside a counted path)."""
+    saved = {k: fn.launches for k, fn in counters.items()}
+    try:
+        yield
+    finally:
+        for k, fn in counters.items():
+            fn.launches = saved[k]
+
+
+def ladder_phase(dev, rehearsal: bool, seed: int, chunk_us: dict) -> dict:
+    """Phase 7f: the serving engine's single-card surface (:func:`ladder_programs`,
+    :func:`ladder_engine`), then B1, B3 and B4 at the small bucket
+    (:func:`ladder_kernels`).  The ``ladder`` path's launches are counted
+    from after the engine's warm-up to the end of :func:`ladder_engine`,
+    less the reference runs (:func:`uncounted`).  Returns the paths'
+    launches and the kernels' entries."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_cuda
+    from mx_rcnn_tpu_torch.serve.engine import build_engine
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    t_phase = time.perf_counter()
+    counters = {"roi_align": multilevel_roi_align_cuda, "fused_middle": fused_middle_levels,
+                "nms": nms_mask_cuda}
+    cfg = apply_overrides(get_config(LADDER_CONFIG), [
+        *c4_overrides(rehearsal), "serve.fused_middle=on", "serve.batch_size=2",
+        "serve.tenancy.enabled=true", f"serve.tenancy.table={LADDER_TABLE}"])
+    variables = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, variables, buckets=ladder_buckets(rehearsal), int8_head=True,
+                          int8_network=True, device=dev)
+    runner = engine.runner
+    engine.start()
+    engine.stop()
+    warm_s = time.perf_counter() - t0
+    levels = runner.levels()
+    card = card_line() if dev.type == "cuda" else "cpu rehearsal"
+    log(f"[ladder] {card}; {LADDER_CONFIG}, buckets {runner.buckets}, batch "
+        f"{runner.batch_size}: levels {levels}; {len(runner._warmed)} programs "
+        f"{sorted(runner._warmed)} warmed in {warm_s:.1f} s (build and quantization included)")
+    if levels != ("full", "small", "full_q8", "full_q8n", "reduced", "proposals") \
+            or len(runner._warmed) != 8:
+        raise AssertionError(f"ladder: levels {levels}, {len(runner._warmed)} programs")
+    store = {}
+    for fn in counters.values():
+        fn.launches = 0
+    programs = ladder_programs(dev, rehearsal, seed, cfg, variables, runner, store, counters)
+    calls = {k: fn.launches for k, fn in counters.items()}
+    served = ladder_engine(dev, rehearsal, seed, cfg, runner, counters)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    requests = {k: launches[k] - calls[k] for k in launches}
+    log(f"[ladder] launches: {calls} over the programs' calls, {requests} over the engines' "
+        f"requests (warm-ups and reference runs not counted)")
+    if not rehearsal and min(requests[k] for k in ("roi_align", "fused_middle")) < 1:
+        raise AssertionError(f"ladder: B1 or B3 never launched by the engines ({requests})")
+    kernels, prop_launches = ladder_kernels(dev, rehearsal, seed, cfg, variables, store,
+                                            counters, chunk_us)
+    log(f"[ladder] phase 7f in {time.perf_counter() - t_phase:.2f} s")
+    return {"paths": {"ladder": {"launches": launches},
+                      "ladder_proposals": {"launches": prop_launches}},
+            "kernels": kernels, "programs": programs, "served": served}
+
+
+class _Levels(_Delegate):
+    """Offers only ``only`` of the runner's levels while set: the engine then
+    plans every request at one of them (how phase 7f warms each level's
+    estimate with requests that have no deadline)."""
+
+    only = None
+
+    def levels(self):
+        return self.only or self.runner.levels()
+
+
+class _Gated(_Delegate):
+    """Holds its first call until ``gate`` is set (``entered`` says it is
+    held), and records every call's (mode, bucket, image count): requests
+    queue behind the held call and pack."""
+
+    def __init__(self, runner) -> None:
+        super().__init__(runner)
+        self.entered, self.gate, self.calls = threading.Event(), threading.Event(), []
+
+    def run(self, mode, bucket, images):
+        if not self.entered.is_set():
+            self.entered.set()
+            self.gate.wait(600)
+        self.calls.append((mode, bucket, len(images)))
+        return self.runner.run(mode, bucket, images)
+
+
+def ladder_programs(dev, rehearsal: bool, seed: int, cfg, variables, runner, store: dict,
+                    counters: dict) -> dict:
+    """Phase 7f (2): every program through ``runner.run`` on the same four
+    images, two to a call: responses finite and inside their images,
+    detections from ``full``, ``small``, ``full_q8`` and ``full_q8n``, at
+    most ``reduced_max_detections`` an image from ``reduced``, class 0 only
+    from ``proposals``; on the card, each program's calls launch B3 and,
+    but for ``proposals``, B1.  Each program's time a call (host clock, 2
+    images) and device time (traced).  The ``small`` call's ROIAlign and
+    fused-middle inputs go to ``store`` for the kernels.  The q8 gates: on
+    the pooled features of the ``full`` call, the int8 head's logits and
+    deltas within 0.05 x max|ref| of the model's head (the JAX package's
+    tests/test_precision.py); ``full_q8n`` by :func:`q8n_references`, whose
+    runs are not counted."""
+    from mx_rcnn_tpu_torch.ops.cuda import middle as middle_mod
+    from mx_rcnn_tpu_torch.serve.quantize import apply_box_head_q8
+    from mx_rcnn_tpu_torch.utils.profiling import traced_breakdown
+
+    images = ladder_images(rehearsal, seed)
+    small, big = runner.buckets[0], runner.buckets[-1]
+    if any(runner.pick_bucket(*img.shape[:2]) != big for img in images):
+        raise AssertionError("ladder: a request image fits the small bucket")
+    level_of = {("full", big): "full", ("full", small): "small"}
+    every = lambda size, levels: True   # noqa: E731
+    calls = 2 if rehearsal else 10
+    out, times, full_pool = {}, {}, []
+    store["pool"] = []
+    for mode, bucket in runner._program_keys:
+        level = level_of.get((mode, bucket), mode)
+        name = f"{level}@{bucket[0]}x{bucket[1]}"
+        before = {k: fn.launches for k, fn in counters.items()}
+        with contextlib.ExitStack() as stack:
+            if (mode, bucket) == ("full", small):
+                stack.enter_context(captured_pool(store["pool"], every))
+                stack.enter_context(captured(middle_mod, ("_launch", "fused_middle_levels_plain"),
+                                             keep_last(store)))
+            elif (mode, bucket) == ("full", big):
+                stack.enter_context(captured_pool(full_pool, every))
+            res = runner.run(mode, bucket, images[:2]) + runner.run(mode, bucket, images[2:])
+        ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+        for img, r in zip(images, res):
+            check_response(r, *img.shape[:2])
+        counts = [len(r["scores"]) for r in res]
+        if mode == "reduced" and max(counts) > runner.reduced_max_detections:
+            raise AssertionError(f"ladder {name}: {counts} detections, over "
+                                 f"{runner.reduced_max_detections} an image")
+        if mode == "proposals" and any((r["classes"] != 0).any() for r in res):
+            raise AssertionError(f"ladder {name}: a proposal of a class other than 0")
+        if mode != "proposals" and sum(counts) == 0:
+            raise AssertionError(f"ladder {name}: no detections")
+        need = ("fused_middle",) if mode == "proposals" else ("roi_align", "fused_middle")
+        if not rehearsal and min(ran[k] for k in need) < 1:
+            raise AssertionError(f"ladder {name}: {need} not all launched ({ran})")
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            runner.run(mode, bucket, images[:2])
+        ms = 1e3 * (time.perf_counter() - t0) / calls
+        device_ms = (traced_breakdown(lambda: runner.run(mode, bucket, images[:2]))
+                     ["device_ms_per_call"] if dev.type == "cuda" else float("nan"))
+        out[name], times[name] = res, {"ms": ms, "device_ms": device_ms}
+        log(f"[ladder:{name}] checks passed; outputs per image {counts}; launches over its "
+            f"two check calls {ran}; {ms:.2f} ms a call of 2 images (host clock), device "
+            f"{device_ms:.2f} ms")
+
+    # The int8 head against the model's own, on the full call's pooled features.
+    pooled = full_pool[2]
+    s = pooled.shape[-2]
+    pooled = pooled.reshape(-1, s, s, pooled.shape[-1])
+    live = runner._active
+    with torch.inference_mode():
+        ref = live.model.box(pooled)
+        got = apply_box_head_q8(live.q8, pooled)
+    head = [float((g.float() - r.float()).abs().max() / r.float().abs().max())
+            for g, r in zip(got, ref)]
+    log(f"[ladder:q8] full_q8 head on {pooled.shape[0]} pooled rois: max |err| / max |ref| "
+        f"logits {head[0]:.4g}, deltas {head[1]:.4g} (gate 0.05)")
+    if not max(head) <= 0.05:
+        raise AssertionError(f"ladder q8 head gate: {head}")
+    with uncounted(counters):
+        maps = q8n_references(dev, cfg, variables, images, out[f"full@{big[0]}x{big[1]}"],
+                              out[f"full_q8n@{big[0]}x{big[1]}"], big)
+    return {"times": times, "q8_head_err": head, "q8n": maps}
+
+
+def q8n_references(dev, cfg, variables, images, full: list, q8n: list, bucket) -> dict:
+    """The served ``full_q8n`` (bf16) against two references, each a
+    runner of its own:
+
+    * the ``full`` program of a runner whose weights are the dequantized
+      int8 network (``dequantize_network(quantize_network(...))`` on the
+      host): ``full_q8n`` is the production forward on those weights, so
+      its detections must be bitwise these, and differ from the served
+      ``full``'s;
+    * the JAX package's gate (mean AP against ``full`` at least 0.85) as its
+      test runs it: on a float32 network (``model.precision.policy=float32``,
+      TF32 off), so that the only difference between the two programs is
+      the int8 rounding of the weights.  The served bf16 programs' AP and
+      the noise floor of that reading (the bf16 ``full`` against the float32
+      one) are printed: a random network's detections are near ties, which
+      any rounding reorders (the RPN's objectness above all)."""
+    from mx_rcnn_tpu_torch.config import apply_overrides
+    from mx_rcnn_tpu_torch.serve.engine import DetectorRunner
+    from mx_rcnn_tpu_torch.serve.quantize import dequantize_network, quantize_network
+
+    def served(runner, mode):
+        runner.warmup()
+        return [r for half in (images[:2], images[2:]) for r in runner.run(mode, bucket, half)]
+
+    rounded = DetectorRunner(cfg, dequantize_network(quantize_network(variables)),
+                             buckets=[bucket], batch_size=2, with_proposals=False, device=dev)
+    ref = served(rounded, "full")
+    bitwise = [same_result(a, b) for a, b in zip(q8n, ref)]
+    same_as_full = [same_result(a, b) for a, b in zip(q8n, full)]
+    del rounded
+    f32 = DetectorRunner(apply_overrides(cfg, ["model.precision.policy=float32"]), variables,
+                         buckets=[bucket], batch_size=2, int8_network=True,
+                         with_proposals=False, device=dev)
+    full32, q8n32 = served(f32, "full"), served(f32, "full_q8n")
+    maps = {"f32": float(np.mean(q8n_map(full32, q8n32))),
+            "bf16": float(np.mean(q8n_map(full, q8n))),
+            "bf16_vs_f32": float(np.mean(q8n_map(full32, full))),
+            "classes": len(q8n_map(full32, q8n32)),
+            "bitwise_rounded_full": bitwise, "same_as_full": same_as_full}
+    log(f"[ladder:q8n] served full_q8n bitwise the full program on the dequantized int8 "
+        f"weights, per image: {bitwise}; equal to the served full: {same_as_full}; mean AP "
+        f"against full, float32 policy {maps['f32']:.4f} (gate 0.85); as served in bf16 "
+        f"{maps['bf16']:.4f}, where full in bf16 against full in float32 reads "
+        f"{maps['bf16_vs_f32']:.4f}; {maps['classes']} classes over 0.05")
+    if not all(bitwise) or all(same_as_full) or not maps["f32"] >= 0.85:
+        raise AssertionError(f"ladder q8n gates: {maps}")
+    return maps
+
+
+def ladder_engine(dev, rehearsal: bool, seed: int, cfg, runner, counters: dict) -> dict:
+    """Phase 7f (3-7) through engines over the warmed runner: the ladder and
+    the breaker, packing, the weight swap under load, the watchdog on a
+    stuck device call, tenancy.  The runs of the runner that packing and
+    the swap are held against are not counted."""
+    import threading
+
+    from mx_rcnn_tpu_torch.serve.degrade import plan_level
+    from mx_rcnn_tpu_torch.serve.engine import (
+        EngineUnavailable,
+        InferenceEngine,
+        QuotaExceeded,
+        ServeError,
+    )
+    from mx_rcnn_tpu_torch.serve.tenancy import TenancyPolicy
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    images = ladder_images(rehearsal, seed)
+    out = {}
+
+    # (3) The ladder: each level's estimate warmed by requests without a
+    # deadline (offered that level alone), best level last, so the planner
+    # sits at full; headroom 4, so that a level that fits by its estimate
+    # also meets its deadline on a host whose calls vary by a quarter.
+    headroom = 4.0
+    levels = _Levels(runner)
+    eng = InferenceEngine(levels, headroom=headroom, pack=False)
+    with eng:
+        warm = {}
+        for level in reversed(runner.levels()):
+            levels.only = (level,)
+            got = [eng.infer(img) for img in (*images, *images)]
+            if [r["level"] for r in got] != [level] * len(got):
+                raise AssertionError(f"ladder: warming {level} served {got}")
+            warm[level] = [round(1e3 * r["latency_s"], 2) for r in got]
+        levels.only = None
+        est = eng.estimates.snapshot()
+        log(f"[ladder:plan] warm-up latencies ms, eight requests a level without a deadline: "
+            f"{warm}")
+        available = list(runner.levels())
+        t_full = est["full"] * headroom
+        for f in (0.9, 0.8, 0.7, 0.6, 0.5):
+            deadline = f * t_full
+            want = plan_level(deadline, est, True, available, headroom)
+            if want != "full" and want == plan_level(0.95 * deadline, est, True, available,
+                                                     headroom):
+                break
+        fit = eng.submit(images[0], timeout=deadline).result(600)
+        nothing = 0.5 * headroom * min(est.values())
+        cheapest = eng.submit(images[1], timeout=nothing).result(600)
+        stats = eng.stats()
+    log(f"[ladder:plan] estimates ms {({k: round(1e3 * v, 2) for k, v in est.items()})}, "
+        f"headroom {headroom}: a deadline of {1e3 * deadline:.2f} ms (under full's "
+        f"{1e3 * t_full:.2f}) served at {fit['level']} (expected {want}) in "
+        f"{1e3 * fit['latency_s']:.2f} ms; {1e3 * nothing:.2f} ms (nothing fits) served at "
+        f"{cheapest['level']} in {1e3 * cheapest['latency_s']:.2f} ms; served {stats['served']}")
+    if fit["level"] != want or want == "full" or cheapest["level"] != "proposals":
+        raise AssertionError(f"ladder: served at {fit['level']} (expected {want}) and "
+                             f"{cheapest['level']} (expected proposals)")
+    out["plan"] = {"estimates_ms": {k: 1e3 * v for k, v in est.items()},
+                   "fit": fit["level"], "nothing_fits": cheapest["level"]}
+
+    # The breaker: the full-quality program fails three times, the breaker
+    # opens, and the next request is served at full_q8.
+    eng = InferenceEngine(_FailsFullQuality(runner), pack=False)
+    with eng:
+        errors = []
+        for img in images[:3]:
+            try:
+                eng.infer(img)
+                errors.append(None)
+            except ServeError as e:
+                errors.append(type(e).__name__)
+        degraded = eng.infer(images[3])
+        stats = eng.stats()
+    log(f"[ladder:breaker] full-quality failures {errors}, then served at {degraded['level']}; "
+        f"breaker {stats['breaker']}, trips {stats['breaker_trips']}, served {stats['served']}, "
+        f"failed {stats['failed']}, state {stats['state']}")
+    if errors != ["ServeError"] * 3 or degraded["level"] != "full_q8" \
+            or stats["breaker"] != "open" or stats["breaker_trips"] != 1:
+        raise AssertionError(f"ladder breaker: {errors}, {degraded['level']}, {stats}")
+    out["breaker"] = {k: stats[k] for k in ("breaker", "breaker_trips", "served", "failed")}
+
+    # (4) Packing: five requests queue behind a held call; the packed
+    # results, two to a call, bitwise those of one request a call.
+    gated = _Gated(runner)
+    eng = InferenceEngine(gated)     # pack=True, batch 2
+    sent = [images[0], *images]
+    with eng:
+        reqs = [eng.submit(sent[0])]
+        if not gated.entered.wait(600):
+            raise AssertionError("ladder pack: the first call never started")
+        reqs += [eng.submit(img) for img in sent[1:]]
+        gated.gate.set()
+        results = [r.result(600) for r in reqs]
+        occupancy = eng.stats()["occupancy"]
+    sizes = [n for _, _, n in gated.calls]
+    with uncounted(counters):
+        solo = [runner.run("full", runner.buckets[-1], [img])[0] for img in sent]
+    bitwise = all(same_result(r, s) for r, s in zip(results, solo))
+    log(f"[ladder:pack] images a call {sizes}; occupancy {occupancy}; packed results bitwise "
+        f"equal to one a call: {bitwise}")
+    if sizes.count(2) < 2 or not bitwise or not all(r["level"] == "full" for r in results):
+        raise AssertionError(f"ladder pack: images a call {sizes}, bitwise {bitwise}")
+    out["pack"] = {"occupancy": occupancy, "bitwise": bitwise}
+
+    # (5) The weight swap under load: a client submits without pause while
+    # swap_weights flips to the weights of seed + 1.
+    new = init_variables(cfg.model, torch.Generator().manual_seed(seed + 1))
+    new["box_head.cls_score.bias"][1:5] = 4.0
+    old = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+    old["box_head.cls_score.bias"][1:5] = 4.0
+    after = 16             # requests the client submits once the swap returned
+    done, lock, accepted, swapped = [], threading.Lock(), [], threading.Event()
+    eng = InferenceEngine(runner, max_queue=16)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def finished(i, req):
+        with lock:
+            done.append((i, req))
+
+    def client():
+        i, last = 0, None
+        while i < 4000 and (last is None or i < last):
+            while len(accepted) - len(done) >= 8:     # at most 8 waiting
+                time.sleep(0.001)
+            req = eng.submit(images[i % 4])
+            req.add_done_callback(lambda q, i=i: finished(i, q))
+            accepted.append((i, req))
+            i += 1
+            if last is None and swapped.is_set():
+                last = i + after
+
+    with eng:
+        thread = threading.Thread(target=client, daemon=True)
+        thread.start()
+        limit = time.monotonic() + 600
+        while len(done) < 16 and thread.is_alive() and time.monotonic() < limit:
+            time.sleep(0.001)
+        before = len(done)
+        t0 = time.perf_counter()
+        gen = eng.swap_weights(new)
+        swap_s = time.perf_counter() - t0
+        swapped.set()
+        thread.join(600)
+        for _, req in accepted:
+            req.wait(600)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    failed = [i for i, q in done if q.error() is not None]
+    gens = [q.result()["generation"] for i, q in done if q.error() is None]
+    with uncounted(counters):
+        refs = {1: [runner.run("full", runner.buckets[-1], [img])[0] for img in images]}
+        runner.swap_weights(old)
+        refs[0] = [runner.run("full", runner.buckets[-1], [img])[0] for img in images]
+    matches = all(same_result(q.result(), refs[q.result()["generation"]][i % 4])
+                  for i, q in done if q.error() is None)
+    log(f"[ladder:swap] {len(accepted)} requests under load, swap to generation {gen} in "
+        f"{swap_s:.3f} s, begun after {before} were done: failed {failed}; generations in "
+        f"completion order {''.join(str(g) for g in gens)}; each bitwise its generation's "
+        f"result: {matches}; peak memory {peak:.3f} GiB")
+    if failed or len(done) != len(accepted) or gens != sorted(gens) or set(gens) != {0, 1} \
+            or not matches:
+        raise AssertionError(f"ladder swap: failed {failed}, gens {gens}, matches {matches}")
+    out["swap"] = {"seconds": swap_s, "peak_gib": peak, "requests": len(accepted)}
+
+    # (6) The watchdog: the first device call sleeps about 5 s on the card.
+    stuck_runner = _FirstCallSleeps(runner, sleep_cycles(dev, 5.0))
+    eng = InferenceEngine(stuck_runner, hang_timeout=2.0, watchdog_poll=0.25, pack=False)
+    eng.start()
+    t0 = time.monotonic()
+    stuck = eng.submit(images[0])
+    queued = [eng.submit(img) for img in images[1:3]]
+    errors = []
+    for req in (stuck, *queued):
+        try:
+            req.result(30)
+            errors.append(None)
+        except EngineUnavailable:
+            errors.append("EngineUnavailable")
+    dead_s = time.monotonic() - t0
+    stats = eng.stats()
+    try:
+        eng.submit(images[0])
+        refused = False
+    except EngineUnavailable:
+        refused = True
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    eng.stop(timeout=30)
+    log(f"[ladder:watchdog] hang_timeout 2 s, poll 0.25 s: {stats['state']} ({stats['reason']}) "
+        f"{dead_s:.2f} s after the stuck submit; stuck and queued requests {errors}; submit "
+        f"refused: {refused}; hung {stats['hung']}")
+    if stats["state"] != "dead" or errors != ["EngineUnavailable"] * 3 or not refused \
+            or not 2.0 <= dead_s <= 2.0 + 0.25 + 1.0:
+        raise AssertionError(f"ladder watchdog: {stats['state']}, {errors}, {dead_s:.2f} s")
+    out["watchdog"] = {"dead_s": dead_s}
+
+    # (7) Tenancy: tenant a's third request within its burst is refused.
+    eng = InferenceEngine(runner, tenancy=TenancyPolicy.from_config(cfg.serve.tenancy))
+    with eng:
+        a = [eng.submit(images[0], tenant="a"), eng.submit(images[1], tenant="a")]
+        try:
+            eng.submit(images[2], tenant="a")
+            quota = None
+        except QuotaExceeded as e:
+            quota = e.retry_after_s
+        b = eng.submit(images[3], tenant="b")
+        served = [r.result(600)["level"] for r in (*a, b)]
+    log(f"[ladder:tenancy] table {cfg.serve.tenancy.table!r}: tenant a's third request "
+        f"QuotaExceeded with retry_after_s {quota}; a, a, b served at {served}")
+    if quota is None or not quota > 0 or served != ["full"] * 3:
+        raise AssertionError(f"ladder tenancy: retry_after_s {quota}, served {served}")
+    return out
+
+
+def ladder_kernels(dev, rehearsal: bool, seed: int, cfg, variables, store: dict,
+                   counters: dict, chunk_us: dict) -> tuple[dict, dict]:
+    """Phase 7f (8): B1 (bf16 within one ulp, f32 bitwise) and B3 (bitwise)
+    on the inputs of the ``small`` call of (2), at the 512x864 bucket; B4
+    (bitwise) on the ``proposals`` program of a second runner with
+    ``rpn.nms_impl=pallas`` at that bucket, its launches counted as the
+    ``ladder_proposals`` path.  Each timed as in phase 3: the kernels line's
+    ``@small`` entries.  Returns them and that path's launches."""
+    from mx_rcnn_tpu_torch.config import apply_overrides
+    from mx_rcnn_tpu_torch.ops.cuda import nms as nms_mod
+    from mx_rcnn_tpu_torch.serve.engine import DetectorRunner
+
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    small = ladder_buckets(rehearsal)[1]
+    images = ladder_images(rehearsal, seed)[:2]
+    runner = DetectorRunner(apply_overrides(cfg, ["serve.fused_middle=inherit",
+                                                  "model.rpn.nms_impl=pallas"]),
+                            variables, buckets=[small], batch_size=2, device=dev)
+    runner.warmup()
+    nms_store = {}
+    for fn in counters.values():
+        fn.launches = 0
+    with captured(nms_mod, ("nms_keep_sorted_cuda",), keep_last(nms_store)):
+        res = runner.run("proposals", small, images)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for img, r in zip(images, res):
+        check_response(r, *img.shape[:2])
+    log(f"[ladder:proposals] rpn.nms_impl=pallas at {small}: {[len(r['scores']) for r in res]} "
+        f"proposals an image; launches {launches}")
+    if not rehearsal and launches["nms"] < 1:
+        raise AssertionError(f"ladder: B4 never launched on the proposals program ({launches})")
+
+    (pyr, rois), *_ = store["pool"]
+    size = cfg.model.rcnn.pooled_size
+    fwd = {}
+    for dt, case in ((torch.bfloat16, "small"), (torch.float32, "f32_small")):
+        r = hold_fwd({l: f.to(dt) for l, f in pyr.items()}, rois, size,
+                     cfg.model.rcnn.sampling_ratio, clock, iters, plain_iters)
+        if dt == torch.float32:    # bitwise in float32
+            r["match"] = r["match"] and r["max_abs_err"] == 0.0
+        fwd[case] = r
+        log(f"[kernel:roi_align@small:{case}] {r['shape']} canvas {small}: match={r['match']} "
+            f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} kernel_ms={r['kernel_ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f}")
+    middle = store.get("_launch") or store["fused_middle_levels_plain"]
+    nargs = nms_store["nms_keep_sorted_cuda"][0]
+    found = {"fused_middle": hold_middle(middle[0], chunk_us["fused_middle"], clock, iters,
+                                         plain_iters),
+             "nms": hold_nms(nargs, chunk_us["nms"], clock, iters, plain_iters)}
+    log_proposal_kernels(found, "small")
+    return ({"roi_align@small": kernel_entry(fwd), "fused_middle@small": found["fused_middle"],
+             "nms@small": found["nms"]}, launches)
+
+
 # The kernels of the main paths: source, the TPU kernel it replaces, and
 # the paths that launch it.  (``roi_align_f32`` and ``roi_align_bwd_f32``
 # are checked as well, but the paths run bf16, so they are no entries of
@@ -2545,10 +3269,13 @@ FAST_PATHS = {"roi_align": ("fast_alt", "fast_ingraph", "fast_pipe"),
 MASK_PATHS = {"roi_align": ("mask_full", "mask_train", "mask_eval"),
               "roi_align_bwd": ("mask_train",), "fused_middle": ("mask_full",),
               "nms": ("mask_proposals",)}
+LADDER_PATHS = {"roi_align": ("ladder",), "fused_middle": ("ladder",),
+                "nms": ("ladder_proposals",)}
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
                   ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval",
-                   *FAST_PATHS["roi_align"], *MASK_PATHS["roi_align"])),
+                   *FAST_PATHS["roi_align"], *MASK_PATHS["roi_align"],
+                   *LADDER_PATHS["roi_align"])),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                       "mx_rcnn_tpu/ops/pallas/roi_align.py:623",
                       ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"],
@@ -2556,9 +3283,10 @@ KERNELS = {
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
                      "mx_rcnn_tpu/ops/pallas/middle.py:145",
                      ("full", "c4_full", *FAST_PATHS["fused_middle"],
-                      *MASK_PATHS["fused_middle"])),
+                      *MASK_PATHS["fused_middle"], *LADDER_PATHS["fused_middle"])),
     "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75",
-            ("proposals", "c4_proposals", *FAST_PATHS["nms"], *MASK_PATHS["nms"])),
+            ("proposals", "c4_proposals", *FAST_PATHS["nms"], *MASK_PATHS["nms"],
+             *LADDER_PATHS["nms"])),
 }
 # Phase c4's entries: the same kernels at the single-level C4 shapes,
 # counted over phase c4's paths alone.
@@ -2576,6 +3304,9 @@ KERNELS.update({f"{k}@fast": (*KERNELS[k][:2], on) for k, on in FAST_PATHS.items
 # at 14 in one forward).
 KERNELS.update({f"{k}@mask": (*KERNELS[k][:2], MASK_PATHS[k])
                 for k in ("roi_align", "roi_align_bwd")})
+# Phase 7f's entries: B1, B3 and B4 at the 512x864 bucket of the ladder,
+# counted over phase 7f's paths alone.
+KERNELS.update({f"{k}@small": (*KERNELS[k][:2], on) for k, on in LADDER_PATHS.items()})
 
 
 PKG = "mx_rcnn_tpu_torch"
@@ -2742,6 +3473,9 @@ def main() -> int:
     paths.update(fast["paths"])
     mask = mask_phase(dev, args.cpu_rehearsal, args.seed)
     paths.update(mask["paths"])
+    chunk_us = {k: kernels[k]["extra"]["chunk_step_us"] for k in ("fused_middle", "nms")}
+    ladder = ladder_phase(dev, args.cpu_rehearsal, args.seed, chunk_us)
+    paths.update(ladder["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)
@@ -2749,6 +3483,7 @@ def main() -> int:
     kernels.update(c4["kernels"])
     kernels.update(fast["kernels"])
     kernels.update(mask["kernels"])
+    kernels.update(ladder["kernels"])
 
     line = []
     for name, (source, replaces, on) in KERNELS.items():

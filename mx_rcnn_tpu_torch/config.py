@@ -179,12 +179,39 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class TenancyConfig:
+    """Multi-tenant admission (serve/tenancy.py), read as cfg.serve.tenancy.*;
+    host-side only."""
+
+    # Off keeps every admission path and metric series those of the
+    # single-tenant engine.
+    enabled: bool = False
+    # "name:weight=4,rate=50,burst=20,priority=0;name2:..."
+    # (serve/tenancy.py::parse_table).
+    table: str = ""
+    # Where unknown or absent tenant tokens land; shares its bucket and label.
+    default_tenant: str = "default"
+
+
+@dataclass(frozen=True)
 class ServeConfig:
+    """Serving-engine defaults read by serve/engine.py::build_engine
+    (explicit arguments win)."""
+
+    # Static micro-batch slots per device call; >1 enables packing.
     batch_size: int = 1
+    # Continuous batching (serve/batcher.py): pack pending requests of
+    # different callers into the slots of each call, deadline-aware.  Only
+    # meaningful when batch_size > 1.
+    pack: bool = True
+    # How long the worker lingers for stragglers to top off a partial batch.
+    pack_window_s: float = 0.0
     # "inherit" keeps model.rpn as-is; "on" forces fused_middle=True and
     # nms_impl="pallas" for every serving program; "off" forces the plain
     # chain.
     fused_middle: str = "inherit"
+    # Per-tenant token-bucket quotas and weighted-fair pack shares.
+    tenancy: TenancyConfig = field(default_factory=TenancyConfig)
 
 
 @dataclass(frozen=True)

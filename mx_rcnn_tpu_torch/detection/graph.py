@@ -180,14 +180,16 @@ def _check_ext(batch: Batch) -> bool:
     return True
 
 
-def forward_inference(model, batch: Batch, pixel_stats=None) -> Detections:
+def forward_inference(model, batch: Batch, pixel_stats=None, box_head_apply=None) -> Detections:
     """Full inference: backbone -> RPN -> proposals -> ROIAlign -> box
     head -> NMS (``test.nms_mode``: fused class-offset or per class) ->
     top-D, padded with a valid mask; with ``mask.enabled`` each of the D
     slots also gets the sigmoid of its class's mask logits
     (``Detections.masks``).  A batch with ``ext_rois`` skips the
     RPN and scores those rois (Fast R-CNN testing, the reference's
-    ``test_rcnn --has_rpn false``)."""
+    ``test_rcnn --has_rpn false``).  ``box_head_apply(pooled) -> (logits,
+    deltas)`` replaces ``model.box`` (serving's int8 head,
+    ``serve/quantize.py::apply_box_head_q8``)."""
     cfg = model.cfg
     post = {"fused": _postprocess_one_fused, "per_class": _postprocess_one}.get(cfg.test.nms_mode)
     if post is None:
@@ -201,7 +203,8 @@ def forward_inference(model, batch: Batch, pixel_stats=None) -> Detections:
         props = _propose_on_features(model, feats, batch)
     pooled = _pool_rois_impl(cfg, feats, props.rois, cfg.rcnn.pooled_size, model.roi_levels)
     s = cfg.rcnn.pooled_size
-    cls_logits, box_deltas = model.box(pooled.reshape(-1, s, s, pooled.shape[-1]))
+    box = model.box if box_head_apply is None else box_head_apply
+    cls_logits, box_deltas = box(pooled.reshape(-1, s, s, pooled.shape[-1]))
 
     b, r = props.rois.shape[:2]
     # Scores and box coordinates stay float32 through postprocess whatever

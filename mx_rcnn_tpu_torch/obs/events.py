@@ -1,0 +1,432 @@
+"""Typed event schema: one table of event kinds -> (level, log line).
+
+The port's own copy of ``mx_rcnn_tpu/obs/events.py``, every kind kept, so
+that an event renders the same line in both packages.
+
+Satellite contract ("one source of truth"): the critical-path log lines
+that the chaos harness and operators grep for are DERIVED from the typed
+event payload here, not hand-formatted at the call site.  A call site
+does::
+
+    obs.emit("data", "worker_death", {"service": name, "worker": wid,
+                                      "why": why, ...}, logger=log)
+
+and gets (a) a journal record, (b) a flight-recorder ring entry, and
+(c) the exact log line the harness asserts on (e.g. the literal
+``"respawning"`` / ``"falling back to in-process synchronous assembly"``
+substrings in ``tools/chaos.py``).  Changing a line here changes it
+everywhere — and the typed payload survives even if the prose drifts.
+
+Unknown kinds are legal (the plane is open-vocabulary): they render as
+``"<subsystem>: <kind> <payload>"`` at INFO.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Callable
+
+__all__ = ["EVENTS", "render"]
+
+
+def _fmt_worker_death(p: dict) -> str:
+    return (
+        "{service}: worker {worker} {why}; reassigning {lost} in-flight "
+        "batch(es) {indices}; respawning ({respawns_left} respawn(s) left)"
+    ).format(**p)
+
+
+def _fmt_worker_retired(p: dict) -> str:
+    return (
+        "{service}: worker {worker} {why}; respawn budget exhausted — "
+        "slot retired ({lost} in-flight batch(es) reassigned)"
+    ).format(**p)
+
+
+def _fmt_worker_wedged(p: dict) -> str:
+    return (
+        "{service}: worker {worker} wedged (no heartbeat for "
+        "{heartbeat_age_s:.1f}s); killing"
+    ).format(**p)
+
+
+def _fmt_service_fallback(p: dict) -> str:
+    return (
+        "{service}: all workers dead, respawn budget exhausted "
+        "({deaths} deaths); falling back to in-process synchronous "
+        "assembly — the run continues degraded"
+    ).format(**p)
+
+
+def _fmt_cache_quarantine(p: dict) -> str:
+    return (
+        "tensor cache: corrupt blob for image {image_id!r} ({error}) at "
+        "{path}; quarantined + rebuilding from source"
+    ).format(**p)
+
+
+def _fmt_shm_quarantine(p: dict) -> str:
+    return (
+        "shm slot quarantined: batch {batch_index} slot {slot} "
+        "({reason}) — index reassigned"
+    ).format(**p)
+
+
+def _fmt_cache_evict(p: dict) -> str:
+    return (
+        "cache evict: {evicted} blob(s), {freed_bytes}B freed "
+        "({used_bytes}B/{max_bytes}B after)"
+    ).format(**p)
+
+
+def _fmt_guardian_rollback(p: dict) -> str:
+    return (
+        "guardian: {reason} at step {step} — rolling back to the last "
+        "good checkpoint and skipping the offending data window "
+        "(attempt {attempt}/{max_attempts})"
+    ).format(**p)
+
+
+def _fmt_rollback_restored(p: dict) -> str:
+    return (
+        "guardian rollback: restored step {restored_step}, skipping "
+        "{skipped} batch(es) of the data schedule (total skipped: "
+        "{total_skipped})"
+    ).format(**p)
+
+
+def _fmt_loss_spike(p: dict) -> str:
+    return (
+        "guardian: loss spike at step {step} — {loss:.4f} is "
+        "{sigma:.1f} sigma above the trailing-window mean {mean:.4f} "
+        "(watching for divergence)"
+    ).format(**p)
+
+
+def _fmt_fleet_quarantine(p: dict) -> str:
+    return "fleet: quarantining replica {replica}: {reason}".format(**p)
+
+
+def _fmt_fleet_reinstate(p: dict) -> str:
+    return "fleet: replica {replica} reinstated".format(**p)
+
+
+def _fmt_fleet_retire(p: dict) -> str:
+    return (
+        "fleet: replica {replica} exhausted its rebuild budget "
+        "({rebuilds}); retiring it"
+    ).format(**p)
+
+
+def _fmt_weight_swap(p: dict) -> str:
+    return (
+        "fleet: weight swap -> generation {generation} "
+        "({replicas} replica(s) rolled)"
+    ).format(**p)
+
+
+def _fmt_engine_dead(p: dict) -> str:
+    return (
+        "watchdog: {reason} — failing {queued} queued request(s)"
+    ).format(**p)
+
+
+def _fmt_engine_killed(p: dict) -> str:
+    return "engine killed: {reason}".format(**p)
+
+
+def _fmt_shed(p: dict) -> str:
+    return (
+        "shed: queue full ({queue_depth}/{max_queue}), request rejected"
+    ).format(**p)
+
+
+def _fmt_breaker(p: dict) -> str:
+    return (
+        "circuit breaker {level}: {old_state} -> {new_state}"
+    ).format(**p)
+
+
+def _fmt_ladder(p: dict) -> str:
+    return (
+        "degradation ladder: level {old_level} -> {new_level}"
+    ).format(**p)
+
+
+def _fmt_ckpt_saved(p: dict) -> str:
+    return "checkpoint saved at step {step}".format(**p)
+
+
+def _fmt_ckpt_restored(p: dict) -> str:
+    return "checkpoint restored at step {step}".format(**p)
+
+
+def _fmt_preempt(p: dict) -> str:
+    return (
+        "preemption drain at step {step}: emergency checkpoint written, "
+        "exiting resumable"
+    ).format(**p)
+
+
+def _fmt_metrics_flush(p: dict) -> str:
+    return "metrics flush ({metrics} series)".format(
+        metrics=len(p.get("snapshot", {}))
+    )
+
+
+def _fmt_configured(p: dict) -> str:
+    return (
+        "observability plane up: dir={out_dir} metrics_port="
+        "{metrics_port} spans={spans}"
+    ).format(**p)
+
+
+def _fmt_flight_dump(p: dict) -> str:
+    return "flight recorder dump ({trigger}) -> {path}".format(**p)
+
+
+def _fmt_training_diverged(p: dict) -> str:
+    return (
+        "guardian: training diverged at step {step} ({reason}) after "
+        "{rollbacks} rollback(s) — aborting the run"
+    ).format(**p)
+
+
+def _fmt_lock_order_violation(p: dict) -> str:
+    return (
+        "lockcheck: lock-order cycle closing edge {edge} in thread "
+        "{thread} (held: {held})"
+    ).format(**p)
+
+
+def _fmt_held_lock_blocked_call(p: dict) -> str:
+    return (
+        "lockcheck: blocking call {call} while thread {thread} holds "
+        "{held}"
+    ).format(**p)
+
+
+def _fmt_tenant_quota_exceeded(p: dict) -> str:
+    return (
+        "quota: tenant {tenant} over its admission budget at the "
+        "{layer} layer — request rejected with Retry-After"
+    ).format(**p)
+
+
+def _fmt_tenant_quota_tightened(p: dict) -> str:
+    return (
+        "quota governor: tightening tenant {tenant} to {factor:.0%} of "
+        "its configured rate (burn on slo {slo})"
+    ).format(**p)
+
+
+def _fmt_tenant_quota_restored(p: dict) -> str:
+    return (
+        "quota governor: tenant {tenant} restored to full rate "
+        "(burn cleared on slo {slo})"
+    ).format(**p)
+
+
+def _fmt_slo_burn_start(p: dict) -> str:
+    return (
+        "slo {slo}: burn-rate alert START — {burn_fast:.1f}x over "
+        "{fast_s:.0f}s and {burn_slow:.1f}x over {slow_s:.0f}s "
+        "(budget remaining {budget_remaining:.1%})"
+    ).format(**p)
+
+
+def _fmt_slo_burn_stop(p: dict) -> str:
+    return (
+        "slo {slo}: burn-rate alert STOP after {active_s:.1f}s "
+        "(budget remaining {budget_remaining:.1%})"
+    ).format(**p)
+
+
+def _fmt_fleet_scale_up(p: dict) -> str:
+    return (
+        "autoscaler: scale up {size} -> {target} ({reason})"
+    ).format(**p)
+
+
+def _fmt_deploy_candidate(p: dict) -> str:
+    return (
+        "deploy: candidate step {step} manifest "
+        "{status} ({reason})"
+    ).format(status="ok" if p.get("valid") else "REJECTED", **p)
+
+
+def _fmt_deploy_shadow_start(p: dict) -> str:
+    return (
+        "deploy: step {step} entering shadow as generation {generation} "
+        "(mirror rate {mirror_rate})"
+    ).format(**p)
+
+
+def _fmt_deploy_shadow_verdict(p: dict) -> str:
+    return (
+        "deploy: step {step} shadow verdict {verdict} ({reason}) — "
+        "{mirrored} mirrored, {mismatched}/{compared} bitwise mismatches, "
+        "{level_mismatch} level-mismatched, mAP live={map_live} "
+        "shadow={map_shadow}, shadow SLO {slo}"
+    ).format(slo="held" if p.get("slo_ok") else "VIOLATED", **p)
+
+
+def _fmt_deploy_promote(p: dict) -> str:
+    return (
+        "deploy: step {step} PROMOTED generation {from_generation} -> "
+        "{generation}; watching burn for {watch_window_s:.0f}s"
+    ).format(**p)
+
+
+def _fmt_deploy_reject(p: dict) -> str:
+    return "deploy: step {step} rejected ({reason})".format(**p)
+
+
+def _fmt_deploy_rollback(p: dict) -> str:
+    return (
+        "deploy: ROLLBACK {from_generation} -> {to_generation} "
+        "(restores generation {restored_generation} weights; "
+        "burn on slo {slo})"
+    ).format(**p)
+
+
+def _fmt_deploy_resume(p: dict) -> str:
+    return (
+        "deploy: journal recovery for step {step}: {action}"
+    ).format(**p)
+
+
+def _fmt_fleet_scale_down(p: dict) -> str:
+    return (
+        "autoscaler: scale down {size} -> {target} after {dwell} "
+        "comfortable evaluation(s) ({reason})"
+    ).format(**p)
+
+
+def _fmt_fleet_replica_added(p: dict) -> str:
+    return (
+        "fleet: replica {replica} added (generation {generation})"
+    ).format(**p)
+
+
+def _fmt_fleet_replica_retired(p: dict) -> str:
+    return (
+        "fleet: replica {replica} retired after drain ({reason})"
+    ).format(**p)
+
+
+def _fmt_peer_suspect(p: dict) -> str:
+    return (
+        "gossip: peer {peer} suspect (incarnation {incarnation}, "
+        "heartbeat {heartbeat})"
+    ).format(**p)
+
+
+def _fmt_peer_dead(p: dict) -> str:
+    return (
+        "gossip: peer {peer} dead (incarnation {incarnation}, "
+        "heartbeat {heartbeat})"
+    ).format(**p)
+
+
+def _fmt_peer_alive(p: dict) -> str:
+    return (
+        "gossip: peer {peer} alive (incarnation {incarnation}, "
+        "heartbeat {heartbeat}, was {was})"
+    ).format(**p)
+
+
+def _fmt_gateway_quarantine(p: dict) -> str:
+    return "gateway: quarantining host {host}: {reason}".format(**p)
+
+
+def _fmt_gateway_reinstate(p: dict) -> str:
+    return (
+        "gateway: host {host} reinstated (generation {generation})"
+    ).format(**p)
+
+
+def _fmt_gateway_weight_roll(p: dict) -> str:
+    return (
+        "gateway: weight roll -> generation {generation} "
+        "({hosts}/{of} host(s) rolled)"
+    ).format(**p)
+
+
+# kind -> (logging level, payload -> line).  Level is the default; emit()
+# callers cannot override the line, only the destination logger.
+EVENTS: dict[str, tuple[int, Callable[[dict], str]]] = {
+    # data service / cache
+    "worker_death": (logging.WARNING, _fmt_worker_death),
+    "worker_retired": (logging.ERROR, _fmt_worker_retired),
+    "worker_wedged": (logging.WARNING, _fmt_worker_wedged),
+    "service_fallback": (logging.ERROR, _fmt_service_fallback),
+    "cache_quarantine": (logging.ERROR, _fmt_cache_quarantine),
+    "shm_quarantine": (logging.ERROR, _fmt_shm_quarantine),
+    "cache_evict": (logging.INFO, _fmt_cache_evict),
+    # train loop / guardian
+    "guardian_rollback": (logging.ERROR, _fmt_guardian_rollback),
+    "rollback_restored": (logging.WARNING, _fmt_rollback_restored),
+    "guardian_loss_spike": (logging.WARNING, _fmt_loss_spike),
+    "checkpoint_saved": (logging.INFO, _fmt_ckpt_saved),
+    "checkpoint_restored": (logging.INFO, _fmt_ckpt_restored),
+    "preempt_drain": (logging.WARNING, _fmt_preempt),
+    # serving engine / fleet
+    "engine_dead": (logging.ERROR, _fmt_engine_dead),
+    "engine_killed": (logging.WARNING, _fmt_engine_killed),
+    "shed": (logging.DEBUG, _fmt_shed),
+    "breaker_transition": (logging.INFO, _fmt_breaker),
+    "ladder_transition": (logging.INFO, _fmt_ladder),
+    "fleet_quarantine": (logging.WARNING, _fmt_fleet_quarantine),
+    "fleet_reinstate": (logging.INFO, _fmt_fleet_reinstate),
+    "fleet_retire": (logging.ERROR, _fmt_fleet_retire),
+    "weight_swap": (logging.INFO, _fmt_weight_swap),
+    "fleet_replica_added": (logging.INFO, _fmt_fleet_replica_added),
+    "fleet_replica_retired": (logging.INFO, _fmt_fleet_replica_retired),
+    # multi-tenancy (serve/tenancy.py, serve/fleet.py, serve/engine.py)
+    "tenant_quota_exceeded": (logging.DEBUG, _fmt_tenant_quota_exceeded),
+    "tenant_quota_tightened": (logging.WARNING, _fmt_tenant_quota_tightened),
+    "tenant_quota_restored": (logging.INFO, _fmt_tenant_quota_restored),
+    # control plane (ctrl/)
+    "slo_burn_start": (logging.WARNING, _fmt_slo_burn_start),
+    "slo_burn_stop": (logging.INFO, _fmt_slo_burn_stop),
+    "fleet_scale_up": (logging.WARNING, _fmt_fleet_scale_up),
+    "fleet_scale_down": (logging.INFO, _fmt_fleet_scale_down),
+    # continuous deployment (ctrl/deploy.py)
+    "deploy_candidate": (logging.INFO, _fmt_deploy_candidate),
+    "deploy_shadow_start": (logging.INFO, _fmt_deploy_shadow_start),
+    "deploy_shadow_verdict": (logging.INFO, _fmt_deploy_shadow_verdict),
+    "deploy_promote": (logging.WARNING, _fmt_deploy_promote),
+    "deploy_reject": (logging.WARNING, _fmt_deploy_reject),
+    "deploy_rollback": (logging.ERROR, _fmt_deploy_rollback),
+    "deploy_resume": (logging.WARNING, _fmt_deploy_resume),
+    # cross-host fabric (serve/gossip.py, serve/gateway.py)
+    "peer_suspect": (logging.WARNING, _fmt_peer_suspect),
+    "peer_dead": (logging.ERROR, _fmt_peer_dead),
+    "peer_alive": (logging.INFO, _fmt_peer_alive),
+    "gateway_quarantine": (logging.WARNING, _fmt_gateway_quarantine),
+    "gateway_reinstate": (logging.INFO, _fmt_gateway_reinstate),
+    "gateway_weight_roll": (logging.INFO, _fmt_gateway_weight_roll),
+    # train loop / guardian (terminal)
+    "training_diverged": (logging.ERROR, _fmt_training_diverged),
+    # plane-internal
+    "metrics_flush": (logging.DEBUG, _fmt_metrics_flush),
+    "configured": (logging.INFO, _fmt_configured),
+    "flight_dump": (logging.WARNING, _fmt_flight_dump),
+    # runtime lock-order sanitizer (analysis/lockcheck.py)
+    "lock_order_violation": (logging.ERROR, _fmt_lock_order_violation),
+    "held_lock_blocked_call": (logging.ERROR, _fmt_held_lock_blocked_call),
+}
+
+
+def render(subsystem: str, kind: str, payload: dict) -> tuple[int, str]:
+    """(level, derived log line) for an event; open-vocabulary fallback."""
+    entry = EVENTS.get(kind)
+    if entry is None:
+        return logging.INFO, f"{subsystem}: {kind} {payload}"
+    level, fmt = entry
+    try:
+        return level, fmt(payload)
+    except (KeyError, ValueError, IndexError) as e:
+        # A malformed payload must never take down the emitting subsystem.
+        return level, f"{subsystem}: {kind} {payload} (template error: {e})"

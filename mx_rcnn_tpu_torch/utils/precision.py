@@ -58,3 +58,28 @@ def policy_of(model_cfg) -> Policy:
     """The policy of a ``config.ModelConfig``."""
     prec = model_cfg.precision
     return resolve(prec.policy, model_cfg.backbone.dtype, prec.accum)
+
+
+# ---------------------------------------------------------------------------
+# int8 weight-only quantization (serving)
+# ---------------------------------------------------------------------------
+
+
+def quantize_per_channel(w: torch.Tensor, axis: int = -1):
+    """Symmetric per-channel int8 quantization along ``axis`` (the output
+    channel): q = round(w / s), rounding half to even, s = amax(|w|) / 127
+    per channel.  Returns ``(q int8, scale f32)`` with ``scale`` shaped to
+    broadcast against ``q``.  Zero channels get scale 1 so dequantization
+    stays exact.  The JAX package's numerics, element for element."""
+    w = w.to(torch.float32)
+    axis = axis % w.ndim
+    amax = w.abs().amax(dim=tuple(i for i in range(w.ndim) if i != axis), keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype = torch.bfloat16):
+    """int8 weights back to ``dtype``: the scale multiply in f32, then one
+    cast."""
+    return (q.to(torch.float32) * scale).to(dtype)

@@ -35,6 +35,19 @@ _UNRENAME = {v: k for k, v in _RENAME.items()}
 _TRANSPOSED = ("mask_head.deconv.weight",)
 
 
+def output_axis(key: str) -> int:
+    """The output-channel axis of the ``state_dict`` weight ``key``: 1 for
+    the transposed convolution's (in, out, kh, kw), 0 for every other
+    (out, ...)."""
+    return 1 if key in _TRANSPOSED else 0
+
+
+def is_constant(key: str, state_dict) -> bool:
+    """Whether ``key`` is a FrozenBN tensor (flax's ``constants``): its
+    module has a ``var`` buffer."""
+    return f"{key.rsplit('.', 1)[0]}.var" in state_dict
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -76,7 +89,7 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
             key = ".".join(path)
             if key in out:
                 raise ValueError(f"two variables map to {key}")
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[key] = torch.from_numpy(np.array(arr, order="C"))   # a copy, positive strides
     return out
 
 
@@ -88,8 +101,7 @@ def to_jax_variables(state_dict) -> dict:
     tree: dict = {"params": {}, "constants": {}}
     for key, value in state_dict.items():
         path = key.split(".")
-        prefix = ".".join(path[:-1])
-        coll = "constants" if f"{prefix}.var" in state_dict else "params"
+        coll = "constants" if is_constant(key, state_dict) else "params"
         arr = value.detach().cpu().numpy()
         if key in _TRANSPOSED:
             path, arr = path[:-1] + ["kernel"], arr.transpose(2, 3, 0, 1)[::-1, ::-1]

@@ -12,8 +12,8 @@ Staged, so each stage is held as tightly as its contract allows:
     ``match_fraction`` (same class, IoU >= 0.9, score within 1e-3) for at
     least 90% of them: the convolutions sum in another order.
 The engine answers requests on the CPU, refuses an unwarmed program, sheds
-when its queue is full, and raises when no device is given and no card is
-present.
+when its queue is full, reaches the proposals program through the degrade
+ladder, and raises when no device is given and no card is present.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from mx_rcnn_tpu_torch.detection import graph as TG
 from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
 from mx_rcnn_tpu_torch.evalutil.postprocess import match_fraction, unletterbox_detections
 from mx_rcnn_tpu_torch.serve.engine import (
+    DetectorRunner,
     EngineUnavailable,
     InferenceEngine,
     Overloaded,
@@ -178,7 +179,8 @@ def test_engine_serves_requests_on_cpu(setup):
         results = [r.result(120) for r in [engine.submit(img) for img in images]]
         with pytest.raises(EngineUnavailable):
             engine.runner.run("full", (64, 64), images[:1])
-    assert engine.served == 3
+    assert engine.stats()["served"] == {"full": 3}
+    assert [r["level"] for r in results] == ["full"] * 3
     for img, res in zip(images, results):
         h, w = img.shape[:2]
         assert res["boxes"].shape == (len(res["scores"]), 4) and len(res["scores"]) > 0
@@ -216,8 +218,10 @@ def test_engine_packs_requests_by_bucket(setup):
 
 
 def test_engine_proposals_mode_and_overload(setup):
+    """The proposals program, reached through the ladder (a deadline that no
+    better level's estimate fits), and the queue shedding when full."""
     cfg = apply_overrides(setup["cfg"], ["model.rpn.nms_impl=pallas"])
-    engine = build_engine(cfg, setup["sd"], device="cpu", mode="proposals", max_queue=1)
+    engine = build_engine(cfg, setup["sd"], device="cpu", max_queue=1)
     release = threading.Event()
     run = engine.runner.run
 
@@ -226,8 +230,11 @@ def test_engine_proposals_mode_and_overload(setup):
         return run(*args)
 
     with engine:
+        assert engine.runner.levels()[-1] == "proposals"
+        for level in engine.runner.levels()[:-1]:
+            engine.estimates.observe(level, 1e3)
         engine.runner.run = held_run
-        first = engine.submit(np.zeros((64, 64, 3)))
+        first = engine.submit(np.zeros((64, 64, 3)), timeout=120)
         while engine._queue.qsize():      # the worker holds the first request
             threading.Event().wait(0.01)
         engine.submit(np.zeros((64, 64, 3)))
@@ -235,15 +242,21 @@ def test_engine_proposals_mode_and_overload(setup):
             engine.submit(np.zeros((64, 64, 3)))
         release.set()
         res = first.result(60)
-    assert engine.shed == 1 and res["boxes"].shape[1] == 4 and (res["classes"] == 0).all()
+    assert engine.stats()["shed"] == 1 and res["level"] == "proposals"
+    assert res["boxes"].shape[1] == 4 and (res["classes"] == 0).all()
 
 
 def test_no_device_means_the_card(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_engine(setup["cfg"], setup["sd"])
-    with pytest.raises(ValueError):
-        InferenceEngine(object(), mode="masks")
+    # No mode is chosen by the caller: the ladder picks a program per
+    # request, and a program outside the warmed set is refused.
+    with pytest.raises(TypeError):
+        build_engine(setup["cfg"], setup["sd"], device="cpu", mode="proposals")
+    with pytest.raises(EngineUnavailable):
+        InferenceEngine(DetectorRunner(setup["cfg"], setup["sd"], device="cpu")).runner.run(
+            "masks", (128, 128), [np.zeros((8, 8, 3))])
 
 
 def test_resize_matches_cv2_bilinear():

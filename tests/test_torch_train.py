@@ -133,10 +133,9 @@ def test_rpn_only_grads_match_jax():
     assert np.abs(leaves["['box_head']['fc6']['kernel']"]).max() == 0
 
 
-def test_forward_train_refuses_masks_and_external_rois():
+def test_forward_train_refuses_ext_rois_without_ext_valid():
     """External rois (Fast R-CNN mode, ``test_torch_fast_rcnn.py``) are
-    refused without their pad mask.  (The name predates Mask R-CNN, whose
-    ``gt_masks`` the graph now takes: ``test_torch_mask.py``.)"""
+    refused without their pad mask."""
     cfg = get_config("tiny_synthetic")
     model = TwoStageDetector(cfg.model, device="cpu")
     ds = SyntheticDataset(image_hw=(128, 128))
