@@ -192,6 +192,32 @@ when every phase passed):
    references of (2), the one-a-call runs that (4) and (5) are held
    against), and B4's on (8)'s ``proposals`` call.  The rehearsal cuts it
    as phase 7c, with buckets 192x256 and 128x160.
+7g. The single-card training forms (:func:`forms_phase`), ``r50_fpn_coco``
+   at full width (800x1344, batch 2 a microbatch, compact RPN loss, the
+   mixed policy, the synthetic set's uint8 images in the loader's
+   schedule, random weights from the seed), through
+   ``train/loop.py::train``: (1) ``train.accum_steps=2`` for 3 optimizer
+   steps, the counts set to 0 before and read after each step: B1 and B2
+   twice a step (once a microbatch), finite, every trainable parameter
+   moved, frozen ones and buffers bitwise; seconds a step, img/s,
+   ``data_stall_ms`` and peak memory printed.  From one state, under
+   deterministic algorithms and the float32 policy, one accumulated step
+   against one step over the same 4 images on the same draws: parameters
+   within 2e-6 + 1e-5 |p| (the JAX package's contract); and
+   ``accum_steps=1`` bitwise the plain step after 2 steps.  (2)
+   ``backbone.remat`` on against off, one step from one state under
+   deterministic algorithms: gradients bitwise equal, the remat step's
+   peak memory lower, both printed.  (3) ``backbone.norm`` ``gn`` and
+   ``bn``, 3 steps each, checked as (1) (so ``bn``'s running statistics
+   and the frozen stages' norm parameters stay bitwise, the others move),
+   a save and restore with equal tree CRC; seconds a step and peak memory
+   printed.  (4) ``train.steps_per_call=2`` against 1, 4 steps each on
+   one loader in runs of 2, deterministic: the loader's schedule and
+   bitwise equal parameters.  (5) B1 (bf16 within one ulp, f32 bitwise)
+   and B2 on the second microbatch of (1)'s last step, each against its
+   plain version and timed as in phase 3: the ``kernels`` line's
+   ``@accum`` entries, counted over (1) alone; phase 7g's launches count
+   in B1's and B2's entries as well.  The rehearsal cuts it as phase 7c.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -952,8 +978,10 @@ def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 
     # The backward's inputs of the last step, for timing B2 on a real
     # step's rois.
     step_args = []
+    live = 0.0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev) / 2**30
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -993,7 +1021,8 @@ def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 
         f"{cfg.train.per_device_batch}, {h}x{w}, {steps} steps in {time.perf_counter() - t0:.2f} "
         f"s (build and the synthetic set's rendering included); after the first: {wall:.4f} s "
         f"a step with the batch assembly, of which data_stall_ms {stall:.2f} (time in "
-        f"next(loader)); peak memory {peak:.2f} GiB; "
+        f"next(loader)); peak memory {peak:.2f} GiB ({peak - live:.2f} above the {live:.2f} "
+        f"GiB live before the run); "
         f"loss {steps_seen[0][1]['loss']:.4f} -> {steps_seen[-1][1]['loss']:.4f}; "
         f"frozen {n_frozen} parameters and all buffers unchanged, {moved} of {n_train} "
         f"trainable moved; launches {launches}")
@@ -1001,6 +1030,7 @@ def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 
         raise AssertionError(f"{label}: the ROIAlign backward was never called")
     return {"launches": launches, "step_args": step_args[0], "state": state, "cfg": cfg,
             "s_per_step": wall, "data_stall_ms": stall, "peak_gib": peak,
+            "peak_own_gib": peak - live,
             "lines": [m for _, m, _ in steps_seen]}
 
 
@@ -2661,6 +2691,352 @@ def mask_phase(dev, rehearsal: bool, seed: int) -> dict:
     return {"paths": paths, "kernels": kernels}
 
 
+# Phase 7g: the single-card training forms on r50_fpn_coco.
+FORMS_CONFIG = "r50_fpn_coco"
+
+
+def forms_cfg(rehearsal: bool, seed: int, *extra: str):
+    """``r50_fpn_coco`` as phase 5 trains it (compact RPN loss, the mixed
+    policy, batch 2 a microbatch, the synthetic set), cut as phase 7c in
+    the rehearsal, with ``extra`` overrides."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+
+    return apply_overrides(get_config(FORMS_CONFIG), [
+        "model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic",
+        "train.log_every=1", *c4_overrides(rehearsal), *extra])
+
+
+@contextlib.contextmanager
+def counted(counters: dict, into: dict):
+    """Launch counts set to 0 before the context and added to ``into``
+    after."""
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        yield
+    finally:
+        for k, fn in counters.items():
+            into[k] = into.get(k, 0) + fn.launches
+            fn.launches = 0
+
+
+@contextlib.contextmanager
+def assembled_specs(seen: list):
+    """Append each train batch's ``(indices, flips)`` to ``seen`` as the
+    loader assembles it."""
+    from mx_rcnn_tpu_torch.data.loader import DetectionLoader
+
+    original = DetectionLoader._assemble
+
+    def spy(self, idxs, flips):
+        seen.append(([int(j) for j in idxs], [bool(f) for f in flips]))
+        return original(self, idxs, flips)
+
+    DetectionLoader._assemble = spy
+    try:
+        yield seen
+    finally:
+        DetectionLoader._assemble = original
+
+
+def peak_step(dev, cfg, variables, batch):
+    """One step of ``cfg`` from ``variables`` through ``build_all``'s step:
+    (the state, the gradients it applied, the peak memory above what was
+    allocated before the step, in GiB; NaN on the CPU)."""
+    from mx_rcnn_tpu_torch.train.loop import build_all
+
+    _, opt, state, step_fn, _ = build_all(cfg, device=dev, variables=variables)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    state, metrics = step_fn(state, batch)
+    grads = [None if p.grad is None else p.grad.detach().clone() for p in opt.params]
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30 if cuda else float("nan")
+    return state, grads, peak, metrics
+
+
+def release(dev) -> None:
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def forms_accum_parity(dev, rehearsal: bool, seed: int, counters: dict, launches: dict) -> dict:
+    """(1) From one state, under deterministic algorithms and the float32
+    policy: one accumulated step (2 microbatches of 2) against one step
+    over the same 4 images, which draws the same anchors and rois image
+    for image.  The JAX package's contract: parameters within 2e-6 + 1e-5
+    |p| (the same loss when every image meets its sampling quota; the
+    gradients sum in another order).  And ``accum_steps=1`` against the
+    plain step, 2 steps each: bitwise."""
+    from mx_rcnn_tpu_torch.data.datasets import SyntheticDataset
+    from mx_rcnn_tpu_torch.data.loader import assemble
+    from mx_rcnn_tpu_torch.parallel.step import make_train_step
+    from mx_rcnn_tpu_torch.train.loop import build_all
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    f32 = "model.precision.policy=float32"
+    acc_cfg = forms_cfg(rehearsal, seed, f32, "train.accum_steps=2")
+    flat_cfg = forms_cfg(rehearsal, seed, f32, "train.per_device_batch=4")
+    variables = init_variables(acc_cfg.model, torch.Generator().manual_seed(seed))
+    ds = SyntheticDataset(image_hw=tuple(acc_cfg.data.image_size),
+                          num_classes=acc_cfg.model.num_classes, seed=seed)
+    recs = [ds.record(i) for i in range(4)]
+    micro = [assemble(recs[:2], acc_cfg.data, dev), assemble(recs[2:], acc_cfg.data, dev)]
+    flat = assemble(recs, acc_cfg.data, dev)
+    nondet: list = []
+    with deterministic_algorithms(nondet), counted(counters, launches):
+        s_acc, _, _, m_acc = peak_step(dev, acc_cfg, variables, micro)
+        acc = {n: p.detach().clone() for n, p in s_acc.model.named_parameters()}
+        del s_acc
+        release(dev)
+        s_flat, _, _, m_flat = peak_step(dev, flat_cfg, variables, flat)
+        worst, bad = 0.0, []
+        for n, p in s_flat.model.named_parameters():
+            diff = (acc[n] - p.detach()).abs()
+            worst = max(worst, float(diff.max()))
+            if not bool((diff <= 2e-6 + 1e-5 * p.detach().abs()).all()):
+                bad.append(n)
+        del s_flat, acc
+        release(dev)
+        # accum_steps=1 is the plain step.
+        cfg1 = forms_cfg(rehearsal, seed, "train.accum_steps=1")
+        mixed = init_variables(cfg1.model, torch.Generator().manual_seed(seed))
+        ends = []
+        for step_of in (lambda fn: fn,
+                        lambda fn: make_train_step((cfg1.data.pixel_mean, cfg1.data.pixel_std),
+                                                   cfg1.train.seed)):
+            _, _, state, step_fn, _ = build_all(cfg1, device=dev, variables=mixed)
+            step_fn = step_of(step_fn)
+            for b in micro:
+                state, _ = step_fn(state, b)
+            ends.append({k: v.clone() for k, v in state.model.state_dict().items()})
+            del state
+            release(dev)
+    plain_same = all(torch.equal(ends[0][k], ends[1][k]) for k in ends[0])
+    loss_gap = abs(float(m_acc["loss"]) - float(m_flat["loss"]))
+    log(f"[forms:accum] one accumulated step (2 x 2) against one step over the 4 images, "
+        f"float32, deterministic: parameters max |diff| {worst:.3g}, "
+        f"{len(bad)} tensors outside 2e-6 + 1e-5 |p|; loss {float(m_acc['loss']):.6f} vs "
+        f"{float(m_flat['loss']):.6f}; accum_steps=1 bitwise the plain step after 2 steps: "
+        f"{plain_same}; ops without a deterministic algorithm: {nondet}")
+    if bad or not plain_same or not loss_gap <= 1e-4 * abs(float(m_flat["loss"])) + 1e-5:
+        raise AssertionError(f"forms accum parity: outside tolerance {bad[:5]}, plain bitwise "
+                             f"{plain_same}, loss gap {loss_gap}")
+    return {"max_param_diff": worst}
+
+
+def forms_remat(dev, rehearsal: bool, seed: int, counters: dict, launches: dict) -> dict:
+    """(2) ``backbone.remat`` true against false, one step from one state
+    and batch under deterministic algorithms: gradients bitwise equal, the
+    remat step's peak memory lower; both peaks printed."""
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    cfgs = {False: forms_cfg(rehearsal, seed), True: forms_cfg(rehearsal, seed,
+                                                                "model.backbone.remat=true")}
+    variables = init_variables(cfgs[False].model, torch.Generator().manual_seed(seed))
+    batch = synthetic_batch(cfgs[False], dev, seed)
+    out = {}
+    nondet: list = []
+    with deterministic_algorithms(nondet), counted(counters, launches):
+        for remat, cfg in cfgs.items():
+            state, grads, peak, _ = peak_step(dev, cfg, variables, batch)
+            out[remat] = (grads, peak)
+            del state
+            release(dev)
+    same = all((a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+               for a, b in zip(out[False][0], out[True][0]))
+    stored, remat = out[False][1], out[True][1]
+    log(f"[forms:remat] one step, deterministic: gradients bitwise equal {same} "
+        f"({len(out[False][0])} tensors); peak memory above the state {stored:.3f} GiB stored, "
+        f"{remat:.3f} GiB remat, {stored - remat:.3f} GiB less; nondeterministic ops {nondet}")
+    if not same or (dev.type == "cuda" and not remat < stored):
+        raise AssertionError(f"forms remat: bitwise {same}, peak {remat} vs {stored}")
+    return {"peak_gib_stored": stored, "peak_gib_remat": remat}
+
+
+def forms_norm(dev, rehearsal: bool, seed: int, norm: str, launches: dict) -> dict:
+    """(3) ``backbone.norm`` ``norm``, 3 steps through ``train()``
+    (:func:`train_run`: finite, every trainable parameter moved, frozen
+    ones and every buffer, ``bn``'s running statistics too, bitwise), the
+    norm parameters counted; then a save and restore into a fresh state,
+    tree CRC equal."""
+    import shutil
+
+    from mx_rcnn_tpu_torch.train.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+        state_payload,
+        tree_crc,
+    )
+    from mx_rcnn_tpu_torch.train.loop import build_all
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    cfg = forms_cfg(rehearsal, seed, f"model.backbone.norm={norm}")
+    run = train_run(dev, rehearsal, cfg, f"forms:{norm}", 3, unmoved=1 if rehearsal else 0)
+    for k, v in run["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    state = run["state"]
+    start = init_variables(cfg.model, torch.Generator().manual_seed(cfg.train.seed))
+    moved = frozen = 0
+    for name, p in state.model.named_parameters():
+        if name.endswith((".scale", ".bias")) and "bn" in name.rsplit(".", 2)[-2]:
+            same = torch.equal(p.detach(), start[name].to(p.device))
+            moved += p.requires_grad and not same
+            frozen += (not p.requires_grad) and same
+    buffers = sorted({n.rsplit(".", 1)[-1] for n, _ in state.model.named_buffers()})
+    work = os.path.join(ROOT, "runs", f"chip_smoke_forms_{norm}_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(work, state)
+    saved_s = time.perf_counter() - t0
+    _, _, fresh, _, _ = build_all(cfg, device=dev)
+    restore_checkpoint(work, fresh)
+    crc = (tree_crc(state_payload(state)), tree_crc(state_payload(fresh)))
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[forms:{norm}] norm scale/bias moved outside the frozen stages {moved}, bitwise "
+        f"inside them {frozen}; buffers {buffers} unchanged; checkpoint saved in {saved_s:.2f} "
+        f"s, restored tree CRC {crc[1]} == {crc[0]}: {crc[0] == crc[1]}")
+    if crc[0] != crc[1] or moved == 0 or frozen == 0:
+        raise AssertionError(f"forms {norm}: crc {crc}, moved {moved}, frozen {frozen}")
+    return {"s_per_step": run["s_per_step"], "peak_gib": run["peak_own_gib"]}
+
+
+def forms_steps_per_call(dev, rehearsal: bool, seed: int, counters: dict,
+                         launches: dict) -> dict:
+    """(4) ``train.steps_per_call`` 2 against 1, 4 steps each through
+    ``train()`` under deterministic algorithms, both on one loader in runs
+    of 2 (on a non-square canvas the run length orders the batches, as in
+    the JAX loader): the loader's schedule (indices and flips) and bitwise
+    equal parameters."""
+    import itertools
+
+    from mx_rcnn_tpu_torch.data.datasets import build_dataset
+    from mx_rcnn_tpu_torch.data.loader import DetectionLoader
+    from mx_rcnn_tpu_torch.data.roidb import filter_roidb
+    from mx_rcnn_tpu_torch.train.loop import train
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    ends, specs, walls = {}, {}, {}
+    nondet: list = []
+    base = forms_cfg(rehearsal, seed)
+    roidb = filter_roidb(build_dataset(base.data, train=True).roidb())
+    loader = DetectionLoader(roidb, base.data, base.train.per_device_batch, dev,
+                             seed=base.train.seed, run_length=2)
+    want = [([int(j) for j in idx], [bool(f) for f in fl])
+            for idx, fl in itertools.islice(loader._batch_index_specs(), 4)]
+    for k in (1, 2):
+        cfg = forms_cfg(rehearsal, seed, f"train.steps_per_call={k}", "train.log_every=2")
+        variables = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+        seen: list = []
+        with deterministic_algorithms(nondet), counted(counters, launches), \
+                assembled_specs(seen):
+            t0 = time.perf_counter()
+            state = train(cfg, steps=4, device=dev, variables=variables, log=lambda line: None,
+                          loader=loader)
+            walls[k] = time.perf_counter() - t0
+        ends[k] = {n: v.clone() for n, v in state.model.state_dict().items()}
+        specs[k] = seen
+        del state
+        release(dev)
+    same = all(torch.equal(ends[1][n], ends[2][n]) for n in ends[1])
+    log(f"[forms:steps_per_call] 4 steps, K = 2 against K = 1: schedule equal "
+        f"{specs[1] == specs[2]} ({len(specs[2])} batches), parameters bitwise {same}; "
+        f"{walls[1]:.2f} s and {walls[2]:.2f} s (build and rendering included)")
+    if not same or not specs[1] == specs[2] == want:
+        raise AssertionError(f"forms steps_per_call: bitwise {same}, schedules {specs}")
+    return {}
+
+
+def forms_kernels(dev, rehearsal: bool, run: dict) -> dict:
+    """(5) B1 and B2 on the inputs of the second microbatch of the last
+    accumulated step: B2 on its backward's inputs, B1 on its rois over its
+    pyramid in bf16 (within one ulp) and f32 (bitwise), each against its
+    plain version and timed as in phase 3: the ``@accum`` entries."""
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    pyr, rois = run["pool"]
+    s, sr = run["cfg"].model.rcnn.pooled_size, run["cfg"].model.rcnn.sampling_ratio
+    fwd = {}
+    for dt, name in ((torch.bfloat16, "microbatch"), (torch.float32, "f32_microbatch")):
+        res = hold_fwd({l: f.to(dt) for l, f in pyr.items()}, rois, s, sr, clock, iters,
+                       plain_iters)
+        if dt == torch.float32:
+            res["match"] = res["match"] and res["max_abs_err"] == 0.0
+        fwd[name] = res
+        log(f"[kernel:roi_align@accum:{name}] {res['shape']}: match={res['match']} "
+            f"max_abs_err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
+            f"kernel_ms={res['kernel_ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"bound_ms={res['bound'][0]:.4f}")
+    bwd = hold_bwd(run["step_args"], clock, iters, plain_iters)
+    log(f"[kernel:roi_align_bwd@accum:microbatch] {bwd['shape']}: match={bwd['match']} "
+        f"max_abs_err={bwd['max_abs_err']:.3g} ms={bwd['ms']:.4f} "
+        f"kernel_ms={bwd['kernel_ms']:.4f} plain_ms={bwd['plain_ms']:.4f} "
+        f"bound_ms={bwd['bound'][0]:.4f}")
+    return {"roi_align@accum": kernel_entry(fwd),
+            "roi_align_bwd@accum": kernel_entry({"microbatch": bwd})}
+
+
+def forms_phase(dev, rehearsal: bool, seed: int) -> dict:
+    """Phase 7g: the single-card training forms of ``r50_fpn_coco`` at full
+    width (800x1344, batch 2 a microbatch, compact RPN loss, the mixed
+    policy, the synthetic set's uint8 images in the loader's schedule,
+    random weights from the seed) through ``train/loop.py``: (1) 3
+    accumulated steps of 2 microbatches (:func:`train_run`: B1 and B2
+    twice a step, finite, trainable moved, frozen and buffers bitwise;
+    seconds a step, img/s, ``data_stall_ms``, peak memory printed) and the
+    parity checks of :func:`forms_accum_parity`; (2) remat
+    (:func:`forms_remat`); (3) ``gn`` and ``bn`` (:func:`forms_norm`); (4)
+    ``steps_per_call`` (:func:`forms_steps_per_call`); (5) the ``@accum``
+    kernel entries (:func:`forms_kernels`).  The rehearsal cuts it as
+    phase 7c.  Returns the paths' launches and the kernels' entries."""
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
+    )
+
+    t_phase = time.perf_counter()
+    counters = {"roi_align": multilevel_roi_align_cuda,
+                "roi_align_bwd": multilevel_roi_align_bwd_cuda}
+    cfg = forms_cfg(rehearsal, seed, "train.accum_steps=2")
+    pooled: list = []
+    with captured_pool(pooled, lambda size, levels: len(levels) > 1):
+        # At the rehearsal's 192x256 no sampled roi reaches P5, so the bias
+        # of that FPN output gets no gradient.
+        run = train_run(dev, rehearsal, cfg, "forms:accum", 3, unmoved=1 if rehearsal else 0,
+                        per_step=2)
+    run["pool"] = pooled[0]
+    img_s = [m["img_s"] for m in run["lines"] if m["img_s"] is not None]
+    log(f"[forms:accum] accum_steps 2 x batch 2 (global batch 4): {run['s_per_step']:.4f} s "
+        f"an optimizer step, {float(np.mean(img_s)):.2f} img/s between drains, data_stall_ms "
+        f"{run['data_stall_ms']:.2f}, peak memory {run['peak_own_gib']:.2f} GiB above what was "
+        f"live before")
+    accum_launches = run["launches"]
+    run["state"] = None
+    release(dev)
+    other: dict = {}
+    parity = forms_accum_parity(dev, rehearsal, seed, counters, other)
+    remat = forms_remat(dev, rehearsal, seed, counters, other)
+    norms = {n: forms_norm(dev, rehearsal, seed, n, other) for n in ("gn", "bn")}
+    release(dev)
+    forms_steps_per_call(dev, rehearsal, seed, counters, other)
+    kernels = forms_kernels(dev, rehearsal, run)
+    log(f"[forms] phase 7g in {time.perf_counter() - t_phase:.2f} s; accumulated step "
+        f"{run['s_per_step']:.4f} s; peaks above what was live before each run: gn "
+        f"{norms['gn']['s_per_step']:.4f} s a step, peak "
+        f"{norms['gn']['peak_gib']:.2f} GiB; bn {norms['bn']['s_per_step']:.4f} s, peak "
+        f"{norms['bn']['peak_gib']:.2f} GiB; remat peak {remat['peak_gib_remat']:.3f} against "
+        f"{remat['peak_gib_stored']:.3f} GiB; accumulation parity max |diff| "
+        f"{parity['max_param_diff']:.3g}; launches accum {accum_launches}, other {other}")
+    return {"paths": {"forms_accum": {"launches": accum_launches},
+                      "forms": {"launches": other}},
+            "kernels": kernels}
+
+
 # Phase 7f: the serving engine's single-card surface on r50_fpn_coco.
 LADDER_CONFIG = "r50_fpn_coco"
 LADDER_TABLE = "a:weight=3,rate=1,burst=2;b:weight=1"
@@ -3271,15 +3647,16 @@ MASK_PATHS = {"roi_align": ("mask_full", "mask_train", "mask_eval"),
               "nms": ("mask_proposals",)}
 LADDER_PATHS = {"roi_align": ("ladder",), "fused_middle": ("ladder",),
                 "nms": ("ladder_proposals",)}
+FORMS_PATHS = ("forms_accum", "forms")
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
                   ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval",
                    *FAST_PATHS["roi_align"], *MASK_PATHS["roi_align"],
-                   *LADDER_PATHS["roi_align"])),
+                   *LADDER_PATHS["roi_align"], *FORMS_PATHS)),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                       "mx_rcnn_tpu/ops/pallas/roi_align.py:623",
                       ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"],
-                       *MASK_PATHS["roi_align_bwd"])),
+                       *MASK_PATHS["roi_align_bwd"], *FORMS_PATHS)),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
                      "mx_rcnn_tpu/ops/pallas/middle.py:145",
                      ("full", "c4_full", *FAST_PATHS["fused_middle"],
@@ -3307,6 +3684,10 @@ KERNELS.update({f"{k}@mask": (*KERNELS[k][:2], MASK_PATHS[k])
 # Phase 7f's entries: B1, B3 and B4 at the 512x864 bucket of the ladder,
 # counted over phase 7f's paths alone.
 KERNELS.update({f"{k}@small": (*KERNELS[k][:2], on) for k, on in LADDER_PATHS.items()})
+# Phase 7g's entries: B1 and B2 on the second microbatch of the last
+# accumulated step, counted over the accumulation run alone.
+KERNELS.update({f"{k}@accum": (*KERNELS[k][:2], ("forms_accum",))
+                for k in ("roi_align", "roi_align_bwd")})
 
 
 PKG = "mx_rcnn_tpu_torch"
@@ -3476,6 +3857,8 @@ def main() -> int:
     chunk_us = {k: kernels[k]["extra"]["chunk_step_us"] for k in ("fused_middle", "nms")}
     ladder = ladder_phase(dev, args.cpu_rehearsal, args.seed, chunk_us)
     paths.update(ladder["paths"])
+    forms = forms_phase(dev, args.cpu_rehearsal, args.seed)
+    paths.update(forms["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)
@@ -3484,6 +3867,7 @@ def main() -> int:
     kernels.update(fast["kernels"])
     kernels.update(mask["kernels"])
     kernels.update(ladder["kernels"])
+    kernels.update(forms["kernels"])
 
     line = []
     for name, (source, replaces, on) in KERNELS.items():

@@ -4,7 +4,7 @@ A copy of the subset of ``mx_rcnn_tpu/config.py`` that the serving path,
 the single-device train step and evaluation read, with the same field
 names and defaults, so a ``--set``-style override string means the same
 thing to both packages.  Fields the port does not read (multi-chip
-layout, TPU layout rewrites such as ``stem_s2d``/``c2_pad``/
+layout such as ``spatial_partition`` and ``bucket_mb``, TPU layout rewrites such as ``stem_s2d``/``c2_pad``/
 ``packed_head``/``fold_frozen_bn``, speed-only knobs such as
 ``assign_block``/``topk_block``/``roi_block``/``topk_impl`` whose forms
 are bit-identical to the dense or stable ones the port computes, the
@@ -33,6 +33,9 @@ class AnchorConfig:
         return len(self.scales) * len(self.ratios)
 
 
+NORMS = ("frozen_bn", "bn", "gn", "none")
+
+
 @dataclass(frozen=True)
 class BackboneConfig:
     name: str = "resnet50"  # resnet50 | resnet101 | vgg16
@@ -40,9 +43,19 @@ class BackboneConfig:
     # (conv1 + res2 frozen for ResNet, groups 1-2 for VGG):
     # train/loop.py::FREEZE_PREFIXES.
     freeze_stages: int = 2
+    # frozen_bn | bn | gn | none (models/norm.py::make_norm).
     norm: str = "frozen_bn"
     # Compute dtype for conv/matmul (params stay float32).
     dtype: str = "bfloat16"
+    # Rematerialize backbone activations on the backward pass (a
+    # checkpoint per residual block / conv group): about 1/3 more backbone
+    # FLOPs for O(depth) less device memory, so bigger canvases or batches
+    # fit than stored activations would allow.
+    remat: bool = False
+
+    def __post_init__(self) -> None:
+        if self.norm not in NORMS:
+            raise ValueError(f"unknown norm {self.norm!r}")
 
 
 @dataclass(frozen=True)
@@ -233,6 +246,15 @@ class ScheduleConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     per_device_batch: int = 1
+    # Train steps a call of the step function runs, on a run of that many
+    # same-canvas batches (parallel/step.py::make_multi_step).  Logging and
+    # checkpoint cadence quantize to it.
+    steps_per_call: int = 1
+    # Microbatches accumulated per optimizer step: >1 sums the gradients
+    # of N microbatches in float32 and applies ONE update, so the global
+    # batch multiplies by N without more memory.  Mutually exclusive with
+    # steps_per_call > 1.  1 is bit-identical to the plain step.
+    accum_steps: int = 1
     momentum: float = 0.9
     weight_decay: float = 1e-4
     grad_clip: float = 35.0
@@ -249,6 +271,14 @@ class TrainConfig:
     # Loss-spike early warning: interval mean this many sigma above the
     # trailing-window mean logs loudly (no rollback, just visibility).
     guardian_spike_z: float = 8.0
+
+    def __post_init__(self) -> None:
+        if self.accum_steps < 1 or self.steps_per_call < 1:
+            raise ValueError(f"accum_steps={self.accum_steps} / "
+                             f"steps_per_call={self.steps_per_call} must be >= 1")
+        if self.accum_steps > 1 and self.steps_per_call > 1:
+            raise ValueError("accum_steps and steps_per_call both > 1: each stacks the "
+                             "batch's leading axis — pick one")
 
 
 @dataclass(frozen=True)

@@ -314,10 +314,16 @@ class DetectionLoader:
     ``quarantine_path`` (``data/cache.py``).  Any other error, such as
     PIL missing on the host, propagates.
 
-    Single host only: the JAX loader's ``rank``/``world`` slicing, the
-    same-canvas runs of ``run_length > 1`` (``steps_per_call``,
-    ``accum_steps``), prefetch, the thread pool and the input service are
-    not ported; every run here has length 1.
+    ``run_length``: batches come in runs of that many consecutive
+    same-canvas batches (``train.steps_per_call`` steps or
+    ``train.accum_steps`` microbatches take one run a call), as in the JAX
+    loader: a group's batches are cut into runs, its last run filled by
+    wrapping whole batches around the group, and the runs shuffled
+    together.  On a square canvas every batch has one shape, so the
+    schedule is that of ``run_length`` 1 whatever it is.
+
+    Single host only: the JAX loader's ``rank``/``world`` slicing,
+    prefetch, the thread pool and the input service are not ported.
 
     ``proposals`` (Fast R-CNN mode): a :func:`load_proposals` map holding
     every record of the roidb (checked here), ``num_proposals`` rows an
@@ -327,8 +333,10 @@ class DetectionLoader:
     def __init__(self, roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int, device,
                  seed: int = 0, quarantine_path: Optional[str] = None,
                  io_retries: int = 2, proposals: Optional[dict] = None,
-                 num_proposals: int = 0, with_masks: bool = False) -> None:
+                 num_proposals: int = 0, with_masks: bool = False,
+                 run_length: int = 1) -> None:
         self.cfg = cfg
+        self.run_length = max(run_length, 1)
         self.with_masks = with_masks
         self.batch_size = batch_size
         self.device = device
@@ -362,13 +370,16 @@ class DetectionLoader:
 
     def _epoch_batches(self, epoch: int) -> list[np.ndarray]:
         """Epoch ``epoch``'s shuffled full batches of roidb indices, each of
-        one orientation under aspect grouping."""
+        one orientation under aspect grouping, in runs of ``run_length``
+        same-orientation batches on a non-square canvas."""
         n, bs = len(self.roidb), self.batch_size
         rng = np.random.RandomState(self.seed + epoch)
         if not self.cfg.aspect_grouping:
             order = rng.permutation(n)
             return [order[i:i + bs] for i in range(0, n - bs + 1, bs)]
         aspects = np.array([r.aspect for r in self.roidb])
+        ch, cw = self.cfg.image_size
+        run = 1 if ch == cw else self.run_length
         runs: list[list[np.ndarray]] = []
         for group in (np.flatnonzero(aspects >= 1), np.flatnonzero(aspects < 1)):
             if len(group) == 0:
@@ -378,7 +389,11 @@ class DetectionLoader:
             if len(group) % bs:
                 # Wrap-around fill of the group's tail batch.
                 batches.append(np.resize(group, (len(batches) + 1) * bs)[-bs:])
-            runs.extend([b] for b in batches)
+            if len(batches) % run:
+                # Wrap whole batches to complete the group's last run.
+                need = run - len(batches) % run
+                batches.extend(batches[i % len(batches)] for i in range(need))
+            runs.extend(batches[i:i + run] for i in range(0, len(batches), run))
         rng.shuffle(runs)
         return [b for r in runs for b in r]
 

@@ -6,7 +6,8 @@ per-image function, the batch axis is written out.  The model is a
 :class:`~mx_rcnn_tpu_torch.detection.detector.TwoStageDetector` holding its
 weights; call the inference functions under ``torch.inference_mode()``.
 :func:`forward_train` returns the differentiable total loss; its random
-draws come in as :class:`Draws` or a ``torch.Generator``.  A batch with
+draws come in as :class:`Draws`, a microbatch's rows of a
+:class:`BatchDraws` or a ``torch.Generator``.  A batch with
 ``ext_rois`` runs Fast R-CNN mode: training samples the external
 proposals in place of the RPN's (and drops the RPN from the graph when
 ``rpn.loss_weight`` is 0), inference scores them.  With ``mask.enabled``
@@ -415,11 +416,58 @@ class Draws(NamedTuple):
     sample_bg: torch.Tensor
 
 
+class BatchDraws:
+    """The draws of one train step over ``rows`` images, handed out a
+    microbatch at a time (gradient accumulation, ``parallel/step.py``).
+
+    ``source`` is a :class:`Draws` of ``rows`` rows, or a generator from
+    which each field is drawn for all ``rows`` images the first time a
+    microbatch asks for it.  Microbatches ask in the order of
+    :class:`Draws`'s fields, as :func:`forward_train` does, so the
+    generator draws what the step over all ``rows`` images at once would
+    draw, and microbatch ``j`` of ``B`` images (:meth:`micro`) takes rows
+    ``jB .. jB + B - 1`` of every field: the same anchors and rois image
+    for image as that step.  A field's row width (A anchors, or R + G with
+    G the padded gt count) is fixed by the first microbatch that asks;
+    the loader pads every batch to ``data.max_gt_boxes`` and
+    ``num_proposals``, and a later microbatch of another width raises."""
+
+    def __init__(self, source, rows: int) -> None:
+        self.source, self.rows = source, rows
+        self._drawn: dict[str, torch.Tensor] = {}
+
+    def micro(self, j: int, b: int) -> "MicroDraws":
+        """The draws of microbatch ``j`` of ``b`` images."""
+        if (j + 1) * b > self.rows:
+            raise ValueError(f"microbatch {j} of {b} images passes the {self.rows} rows drawn")
+        return MicroDraws(self, j * b)
+
+    def field(self, name: str, shape, device, lo: int) -> torch.Tensor:
+        full = self._drawn.get(name)
+        if full is None:
+            full = _uniform(self.source, name, (self.rows, *shape[1:]), device)
+            self._drawn[name] = full
+        if tuple(full.shape[1:]) != tuple(shape[1:]):
+            raise ValueError(f"draws.{name}: a microbatch asks for rows of {tuple(shape[1:])}, "
+                             f"the step drew {tuple(full.shape[1:])}")
+        return full[lo:lo + shape[0]]
+
+
+class MicroDraws(NamedTuple):
+    """Rows ``lo ..`` of a :class:`BatchDraws`."""
+
+    whole: BatchDraws
+    lo: int
+
+
 def _uniform(draws, name: str, shape, device) -> torch.Tensor:
-    """``draws.<name>`` when given, else a fresh (shape) draw from the
-    generator ``draws``, in the fixed order the fields are asked for."""
+    """``draws.<name>`` when given, a microbatch's rows of a
+    :class:`BatchDraws`, else a fresh (shape) draw from the generator
+    ``draws``, in the fixed order the fields are asked for."""
     if isinstance(draws, Draws):
         return getattr(draws, name)
+    if isinstance(draws, MicroDraws):
+        return draws.whole.field(name, shape, device, draws.lo)
     return torch.rand(shape, generator=draws, device=device)
 
 
@@ -497,9 +545,9 @@ def forward_train(model, batch: Batch, draws, pixel_stats=None):
     """One training forward pass -> (total loss, metrics dict).
 
     Differentiable with respect to the model's parameters.  ``draws`` is
-    a :class:`Draws` or a ``torch.Generator`` on the batch's device (the
-    four draws then come from it, in the order of :class:`Draws`'s
-    fields).  Proposals and sampled rois are detached: gradients reach the
+    a :class:`Draws`, a microbatch's :class:`MicroDraws` or a
+    ``torch.Generator`` on the batch's device (the four draws then come
+    from it, in the order of :class:`Draws`'s fields).  Proposals and sampled rois are detached: gradients reach the
     RPN through its losses only.  ``pixel_stats``: (mean, std) for uint8
     batches.
 

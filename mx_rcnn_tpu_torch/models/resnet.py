@@ -2,7 +2,9 @@
 
 Canonical form only: the 7x7/2 stem conv, a 3x3/2 max-pool with -inf
 padding, and bottleneck-v1 blocks (stride in the 3x3 conv, projection
-shortcut on shape change), each conv followed by a frozen BN.  The JAX
+shortcut on shape change), each conv followed by the ``backbone.norm``
+module (``models/norm.py``; the four kinds keep the flax names
+``bn1``, ``downsample_bn``, ...).  The JAX
 package's TPU rewrites (space-to-depth stem, slice-max pool, C2 lane
 padding, BN folding) compute the same function over the same parameter
 tree and are not carried over.
@@ -14,6 +16,14 @@ JAX package's NHWC layout in memory.
 parameter tree is the JAX one whatever the levels (the C4 recipe keeps
 ``layer4``, which the optimizer still decays), but the forward stops
 after the last stage returned.
+
+``remat``: while grad is enabled each residual block runs under
+``torch.utils.checkpoint`` (non-reentrant), so its activations are
+recomputed in the backward pass instead of kept; the stage outputs are
+kept, so the FPN and the heads (and kernels B1 and B2) are never
+recomputed.  The recompute is the same computation, so values and
+gradients are those of the stored form bit for bit wherever the
+convolutions are deterministic.
 """
 
 from __future__ import annotations
@@ -21,9 +31,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mx_rcnn_tpu_torch.models.layers import Conv2d
-from mx_rcnn_tpu_torch.models.norm import FrozenBatchNorm
+from mx_rcnn_tpu_torch.models.norm import make_norm
 
 STAGE_BLOCKS = {
     "resnet50": (3, 4, 6, 3),
@@ -37,20 +48,20 @@ class Bottleneck(nn.Module):
     """1x1 -> 3x3(stride) -> 1x1(x4), projection shortcut on shape change."""
 
     def __init__(self, cin: int, channels: int, stride: int,
-                 dtype: torch.dtype, device=None) -> None:
+                 dtype: torch.dtype, device=None, norm: str = "frozen_bn") -> None:
         super().__init__()
         out = channels * 4
         kw = dict(dtype=dtype, device=device)
         self.conv1 = Conv2d(cin, channels, 1, 1, bias=False, **kw)
-        self.bn1 = FrozenBatchNorm(channels, **kw)
+        self.bn1 = make_norm(norm, channels, **kw)
         self.conv2 = Conv2d(channels, channels, 3, stride, bias=False, **kw)
-        self.bn2 = FrozenBatchNorm(channels, **kw)
+        self.bn2 = make_norm(norm, channels, **kw)
         self.conv3 = Conv2d(channels, out, 1, 1, bias=False, **kw)
-        self.bn3 = FrozenBatchNorm(out, **kw)
+        self.bn3 = make_norm(norm, out, **kw)
         self.downsample_conv = self.downsample_bn = None
         if cin != out or stride != 1:
             self.downsample_conv = Conv2d(cin, out, 1, stride, bias=False, **kw)
-            self.downsample_bn = FrozenBatchNorm(out, **kw)
+            self.downsample_bn = make_norm(norm, out, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -68,12 +79,14 @@ class ResNet(nn.Module):
 
     def __init__(self, blocks=STAGE_BLOCKS["resnet50"],
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 out_levels: tuple[int, ...] = (2, 3, 4, 5)) -> None:
+                 out_levels: tuple[int, ...] = (2, 3, 4, 5), norm: str = "frozen_bn",
+                 remat: bool = False) -> None:
         super().__init__()
         self.dtype = dtype
         self.out_levels = tuple(out_levels)
+        self.remat = remat
         self.conv1 = Conv2d(3, 64, 7, 2, bias=False, dtype=dtype, device=device)
-        self.bn1 = FrozenBatchNorm(64, dtype=dtype, device=device)
+        self.bn1 = make_norm(norm, 64, dtype=dtype, device=device)
         self.block_names: list[list[str]] = []
         cin = 64
         for i, (n_blocks, width) in enumerate(zip(blocks, (64, 128, 256, 512))):
@@ -82,7 +95,7 @@ class ResNet(nn.Module):
                 name = f"layer{i + 1}_block{b}"
                 stride = 2 if (i > 0 and b == 0) else 1
                 self.add_module(
-                    name, Bottleneck(cin, width, stride, dtype, device)
+                    name, Bottleneck(cin, width, stride, dtype, device, norm)
                 )
                 cin = width * 4
                 names.append(name)
@@ -92,9 +105,11 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
         x = F.max_pool2d(x, 3, 2, 1)
         feats = {}
+        remat = self.remat and torch.is_grad_enabled()
         for i, names in enumerate(self.block_names[:max(self.out_levels) - 1]):
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             if i + 2 in self.out_levels:
                 feats[i + 2] = x
         return feats

@@ -5,7 +5,7 @@ packages through ``weights.py``).
 Layout, one directory a step:
 
     <ckpt>/<step>/state.pt      torch.save of CPU tensors: {"step",
-                                "model" (parameters and FrozenBN buffers),
+                                "model" (parameters and norm buffers),
                                 "optimizer": {"step", "momentum"}}
     <ckpt>/manifest-<step>.json {"step", "tree_crc", "valid", "files":
                                 {"state.pt": {"bytes", "crc"}}}

@@ -6,7 +6,10 @@ training; torch users hold ``resnet50/101-*.pth`` state_dicts instead.
 Their keys map onto the port's ``backbone`` modules: convolution weights
 (OIHW on both sides, so no transpose) into parameters, and BN ``weight``,
 ``bias``, ``running_mean``, ``running_var`` into the FrozenBN buffers
-``scale``, ``bias``, ``mean``, ``var``.  Keys of the file that name nothing
+``scale``, ``bias``, ``mean``, ``var``.  Under ``backbone.norm`` ``bn`` or
+``gn`` only the convolutions load and every norm keeps its init, as in
+the JAX package (its importer merges the BN tensors into a ``constants``
+collection those models do not have).  Keys of the file that name nothing
 in the model (``fc.*``, ``num_batches_tracked``, blocks a shallower
 backbone lacks) are skipped.  A VGG-16 file (cfg D, no BN; told apart by
 ``features.0.weight``) maps its 13 convolutions onto ``backbone.group*``
@@ -28,6 +31,9 @@ log = logging.getLogger("mx_rcnn_tpu_torch.import_torch")
 _BN = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
 _BLOCK = re.compile(r"layer(\d)\.(\d+)\.(conv\d|bn\d|downsample\.[01])\.(\w+)$")
 _STEM = re.compile(r"(conv1|bn1)\.(\w+)$")
+# A port key of a norm module (``backbone.bn1.scale``,
+# ``backbone.layer1_block0.downsample_bn.var``).
+_NORM_KEY = re.compile(r"\.(bn\d|downsample_bn)\.\w+$")
 
 
 def _module_key(module: str, leaf: str) -> Optional[str]:
@@ -102,11 +108,13 @@ def map_torch_vgg16(state_dict: Mapping[str, torch.Tensor]
     return backbone, head
 
 
-def load_pretrained_backbone(variables: dict[str, torch.Tensor],
-                             pth_path: str) -> dict[str, torch.Tensor]:
+def load_pretrained_backbone(variables: dict[str, torch.Tensor], pth_path: str,
+                             norm: str = "frozen_bn") -> dict[str, torch.Tensor]:
     """A copy of the state_dict ``variables`` whose backbone tensors (and,
     for VGG-16, the box head's ``fc6``/``fc7``) the torchvision ``.pth``
-    at ``pth_path`` provides (``weights_only`` load).  Only keys present
+    at ``pth_path`` provides (``weights_only`` load).  ``norm``: the
+    model's ``backbone.norm``; the file's BN tensors load only into
+    FrozenBN.  Only keys present
     in both are copied; a backbone shape mismatch raises, and so does a
     file that matches nothing (a wrong-architecture file must not pass for
     random init).  A box head of other dimensions than the classifier's
@@ -116,6 +124,8 @@ def load_pretrained_backbone(variables: dict[str, torch.Tensor],
         mapped, head = map_torch_vgg16(sd)
     else:
         mapped, head = map_torch_resnet(sd), {}
+        if norm != "frozen_bn":
+            mapped = {k: v for k, v in mapped.items() if not _NORM_KEY.search(k)}
     if head:
         if all(k in variables and variables[k].shape == v.shape for k, v in head.items()):
             mapped.update(head)

@@ -1,7 +1,6 @@
 """Build and run the single-device trainer (port of
 ``mx_rcnn_tpu/train/loop.py``, without the mesh, the execution plan,
-stacked steps, the observability plane, the profile window and the
-transfer guard).
+the observability plane, the profile window and the transfer guard).
 
 :func:`build_all` makes the model (random weights from ``train.seed``,
 the given ``state_dict``, and a torchvision ResNet or VGG-16 ``.pth``
@@ -10,7 +9,13 @@ schedule, the optimizer, the state and the step.  :func:`train` runs the
 steps over any roidb that ``data/datasets.py::build_dataset`` returns, in
 the JAX loader's batch schedule (``data/loader.py::DetectionLoader``),
 on the RPN's proposals or, given a proposal pkl, on external ones (Fast
-R-CNN mode).  A phase of the alternate schedule
+R-CNN mode).  The single-card training forms are the JAX loop's:
+``train.accum_steps`` N microbatches an optimizer step (the global
+batch, which scales the schedule and the lr, is ``per_device_batch x
+N``; the loader's batch is a microbatch), or ``train.steps_per_call`` K
+steps a call of the step function (log, checkpoint and guardian
+cadences quantize to K); the loader emits runs of ``max(K, N)``
+same-canvas batches, and the loop hands each call one run.  A phase of the alternate schedule
 (``cli/alternate_cli.py``) freezes more prefixes and starts from the
 previous phase's weights with a fresh optimizer.
 Metrics stay on the card between drains (every ``train.log_every`` steps,
@@ -33,6 +38,7 @@ raises rather than fall back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -60,6 +66,7 @@ from mx_rcnn_tpu_torch.train.optim import SGDMomentum, frozen_mask, make_schedul
 from mx_rcnn_tpu_torch.train.preemption import Preempted, PreemptionGuard
 from mx_rcnn_tpu_torch.train.state import TrainState
 from mx_rcnn_tpu_torch.utils.device import resolve_device
+from mx_rcnn_tpu_torch.utils.precision import policy_of
 from mx_rcnn_tpu_torch.weights import init_variables
 
 logger = logging.getLogger("mx_rcnn_tpu_torch")
@@ -105,9 +112,9 @@ def build_all(cfg: Config, device=None, variables: Optional[dict] = None,
     if pretrained:
         from mx_rcnn_tpu_torch.train.import_torch import load_pretrained_backbone
 
-        variables = load_pretrained_backbone(variables, pretrained)
+        variables = load_pretrained_backbone(variables, pretrained, cfg.model.backbone.norm)
     model.load_state_dict(variables)
-    global_batch = cfg.train.per_device_batch
+    global_batch = cfg.train.per_device_batch * cfg.train.accum_steps
     sched = scale_schedule_steps(cfg.train.schedule, global_batch)
     lr_scale = global_batch / (sched.reference_batch or 16)
     freeze = ()
@@ -123,8 +130,20 @@ def build_all(cfg: Config, device=None, variables: Optional[dict] = None,
     state = TrainState(step=0, model=model, optimizer=optimizer,
                        generator=torch.Generator(device=dev))
     step_fn = make_train_step(pixel_stats=(cfg.data.pixel_mean, cfg.data.pixel_std),
-                              seed=cfg.train.seed)
+                              seed=cfg.train.seed, accum_steps=cfg.train.accum_steps,
+                              accum_dtype=policy_of(cfg.model).accum_dtype,
+                              steps_per_call=cfg.train.steps_per_call)
     return model, optimizer, state, step_fn, global_batch
+
+
+def _runs(it, n: int):
+    """Consecutive groups of ``n`` batches of ``it`` (a loader's runs of
+    ``n`` same-canvas batches), each a list."""
+    while True:
+        run = list(itertools.islice(it, n))
+        if len(run) < n:
+            return
+        yield run
 
 
 def checkpoint_dir(cfg: Config, workdir: Optional[str] = None) -> str:
@@ -180,8 +199,10 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
 
     ``log`` gets one JSON line a drain: the step, the interval's metric
     means (``nonfinite`` included), ``data_stall_ms`` (time in
-    ``next(loader)`` a step) and ``img_s`` (images a second since the
-    previous drain; null at the first).  ``workdir``: the run directory's
+    ``next(loader)`` an optimizer step) and ``img_s`` (images a second
+    since the previous drain; null at the first).  With
+    ``train.steps_per_call`` K, ``steps - start`` must be a multiple of
+    K.  ``workdir``: the run directory's
     parent (checkpoints, metrics, quarantine journal, config); without it
     nothing is written and the guardian can only detect and raise.
     ``resume``: continue from the newest finite checkpoint, on the same
@@ -200,6 +221,7 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
     _, _, state, step_fn, global_batch = build_all(cfg, device, variables, pretrained,
                                                    extra_freeze)
     dev = next(state.model.parameters()).device
+    accum, k = cfg.train.accum_steps, cfg.train.steps_per_call
     if steps is None:
         steps = scale_schedule_steps(cfg.train.schedule, global_batch).total_steps
     run_dir = f"{workdir or cfg.workdir}/{cfg.name}"
@@ -212,13 +234,17 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
     if loader is None:
         roidb = filter_roidb(build_dataset(cfg.data, train=True).roidb())
         loader = DetectionLoader(
-            roidb, cfg.data, global_batch, dev, seed=cfg.train.seed,
+            roidb, cfg.data, global_batch // accum, dev, seed=cfg.train.seed,
+            run_length=max(k, accum),
             quarantine_path=f"{run_dir}/quarantine.jsonl" if workdir else None,
             proposals=load_proposals(proposals_path) if proposals_path else None,
             num_proposals=cfg.model.rpn.train_post_nms_top_n,
             with_masks=cfg.model.mask.enabled)
 
     start = state.step
+    if (steps - start) % k:
+        raise ValueError(f"total steps {steps - start} not divisible by "
+                         f"train.steps_per_call={k}")
     writer = None
     if workdir:
         # Rows past the restored step (a crash after a checkpoint, an
@@ -236,9 +262,11 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
     stall = PrefetchStats()
 
     def data_iter(from_step: int, extra_skip: int):
-        # After a rollback ``extra_skip`` batches of the schedule are
-        # dropped: the retried steps see fresh data, never the poison.
-        return _timed_pulls(loader.iter_from(from_step + extra_skip), stall)
+        # After a rollback ``extra_skip`` steps of the schedule are
+        # dropped: the retried steps see fresh data, never the poison.  An
+        # accumulated step consumes ``accum`` loader batches.
+        it = _timed_pulls(loader.iter_from((from_step + extra_skip) * accum), stall)
+        return _runs(it, max(k, accum)) if max(k, accum) > 1 else it
 
     guardian = Guardian(max_rollbacks=cfg.train.guardian_rollbacks if workdir else 0,
                         spike_zscore=cfg.train.guardian_spike_z)
@@ -246,7 +274,7 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
     pending: list[dict] = []
     last_drain = start
     it = data_iter(start, 0)
-    data_skip = 0      # batches the guardian skipped ahead of the schedule
+    data_skip = 0      # steps the guardian skipped ahead of the schedule
     last_good = start  # newest boundary whose drained metrics were finite
     i = start
     try:
@@ -254,9 +282,9 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
             while i < steps:
                 state, metrics = step_fn(state, next(it))
                 pending.append(metrics)
-                done = i + 1
-                at_log = done % cfg.train.log_every == 0 or i == start
-                at_ckpt = bool(workdir) and done % cfg.train.checkpoint_every == 0
+                done = i + k
+                at_log = done % cfg.train.log_every < k or i == start
+                at_ckpt = bool(workdir) and done % cfg.train.checkpoint_every < k
                 if at_log or at_ckpt or preempt.triggered:
                     # Checkpoint boundaries drain too: a step is saved only
                     # after its whole interval read back finite.
@@ -282,8 +310,8 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
                         img_s = speedo(done, means)
                         log(json.dumps({"step": done, **means, "img_s": img_s}))
                         if writer:
-                            writer.write(done, {k: v for k, v in means.items()
-                                                if k != "nonfinite"})
+                            writer.write(done, {name: v for name, v in means.items()
+                                                if name != "nonfinite"})
                     if at_ckpt:
                         save_checkpoint(ckpt_dir, state)
                 if preempt.triggered:

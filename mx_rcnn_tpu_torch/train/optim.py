@@ -7,7 +7,7 @@ The JAX package's optax chain, written out over the trainable parameters:
      only (``torch.nn.utils.clip_grad_norm_`` adds an epsilon and would
      change the bits);
   2. ``add_decayed_weights(weight_decay)`` on every trainable parameter
-     but biases;
+     but biases and norm scales (leaves named ``bias`` or ``scale``);
   3. SGD with momentum: ``t = g + momentum * t``, ``p = p - lr * t``.
 
 Frozen parameters (``frozen_mask``) get no update, no decay and no
@@ -82,7 +82,7 @@ class SGDMomentum:
                  schedule: Callable[[int], float]) -> None:
         self.names = list(params)
         self.params = [params[n] for n in self.names]
-        self.decays = [not n.endswith("bias") for n in self.names]
+        self.decays = [n.rsplit(".", 1)[-1] not in ("bias", "scale") for n in self.names]
         self.trace = [torch.zeros_like(p) for p in self.params]
         self.momentum = cfg.momentum
         self.weight_decay = cfg.weight_decay

@@ -1,7 +1,8 @@
 """Training state (port of ``mx_rcnn_tpu/train/state.py``).
 
 One object holds what a step reads and writes: the step count, the model
-(float32 master parameters and the FrozenBN buffers), the optimizer (its
+(float32 master parameters and the norm buffers: FrozenBN's four,
+``bn``'s running mean and var), the optimizer (its
 momentum buffers and update count) and the generator the step's random
 draws come from.  The step updates it in place.
 """

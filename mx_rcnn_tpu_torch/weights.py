@@ -1,8 +1,9 @@
 """Weights for the port: the bridge from the JAX package's variables and a
 torch-side initializer for runs without JAX.
 
-The JAX detector keeps ``{"params": ..., "constants": ...}`` trees whose
-paths name the flax modules (``backbone/layer1_block0/conv1/kernel``,
+The JAX detector keeps ``{"params": ..., "constants": ...}`` trees
+(``"batch_stats"`` in place of ``"constants"`` under ``backbone.norm=bn``)
+whose paths name the flax modules (``backbone/layer1_block0/conv1/kernel``,
 ``rpn/conv/bias``, ``constants/backbone/bn1/var``).  The port's modules
 carry the same names, so a path maps to a ``state_dict`` key by joining it
 with dots, with two renames and one transpose:
@@ -10,7 +11,14 @@ with dots, with two renames and one transpose:
   * the RPN head is ``rpn`` in flax and ``rpn_head`` here;
   * a ``kernel`` becomes a ``weight``: conv HWIO -> OIHW (the inverse of
     ``mx_rcnn_tpu/train/import_torch.py``), dense (in, out) -> (out, in);
-  * FrozenBN ``scale/bias/mean/var`` are buffers under the same names.
+  * norm tensors keep their names: FrozenBN's ``scale/bias/mean/var``
+    (all ``constants``, buffers here), ``bn``'s ``scale/bias`` (``params``)
+    and ``mean/var`` (``batch_stats``, buffers here), ``gn``'s
+    ``scale/bias`` (``params``).
+
+A ``state_dict`` does not say which of its tensors are parameters, so
+:func:`to_jax_variables` takes the model's ``backbone.norm`` to tell
+FrozenBN's four from ``bn``'s (both modules have a ``var``).
 
 The mask head's deconv is the one exception to the kernel rule: a flax
 ``ConvTranspose`` kernel (kh, kw, in, out) holds the taps flipped in both
@@ -42,10 +50,24 @@ def output_axis(key: str) -> int:
     return 1 if key in _TRANSPOSED else 0
 
 
-def is_constant(key: str, state_dict) -> bool:
-    """Whether ``key`` is a FrozenBN tensor (flax's ``constants``): its
-    module has a ``var`` buffer."""
-    return f"{key.rsplit('.', 1)[0]}.var" in state_dict
+def collection(key: str, state_dict, norm: str = "frozen_bn") -> str:
+    """The flax collection of the ``state_dict`` tensor ``key`` in a model
+    whose ``backbone.norm`` is ``norm``: a tensor of a module with a
+    ``var`` is FrozenBN's (``"constants"``) or, under ``bn``, a running
+    statistic (``"batch_stats"``: ``mean``, ``var``) or a parameter
+    (``scale``, ``bias``); everything else is a parameter."""
+    prefix, leaf = key.rsplit(".", 1)
+    if f"{prefix}.var" not in state_dict:
+        return "params"
+    if norm == "bn":
+        return "batch_stats" if leaf in ("mean", "var") else "params"
+    return "constants"
+
+
+def is_constant(key: str, state_dict, norm: str = "frozen_bn") -> bool:
+    """Whether ``key`` is no parameter: a FrozenBN tensor or a ``bn``
+    running statistic (:func:`collection`)."""
+    return collection(key, state_dict, norm) != "params"
 
 
 def _flatten(tree, prefix=()):
@@ -73,10 +95,11 @@ def _to_jax_layout(weight: np.ndarray) -> np.ndarray:
 
 
 def from_jax_variables(variables) -> dict[str, torch.Tensor]:
-    """A flax ``{"params", "constants"}`` tree of numpy arrays -> a
-    ``state_dict`` for :class:`TwoStageDetector` (CPU tensors)."""
+    """A flax ``{"params", "constants" or "batch_stats"}`` tree of numpy
+    arrays -> a ``state_dict`` for :class:`TwoStageDetector` (CPU
+    tensors)."""
     out = {}
-    for coll in ("params", "constants"):
+    for coll in ("params", "constants", "batch_stats"):
         for path, leaf in _flatten(variables.get(coll, {})):
             path = (_RENAME.get(path[0], path[0]),) + path[1:]
             arr = np.asarray(leaf)
@@ -93,15 +116,16 @@ def from_jax_variables(variables) -> dict[str, torch.Tensor]:
     return out
 
 
-def to_jax_variables(state_dict) -> dict:
-    """The inverse of :func:`from_jax_variables`: a ``state_dict`` -> a
-    ``{"params", "constants"}`` tree of numpy arrays.  A module with a
-    ``var`` buffer is a FrozenBN, whose tensors are constants; a model
-    without one (VGG-16) has no ``constants``, as in flax."""
-    tree: dict = {"params": {}, "constants": {}}
+def to_jax_variables(state_dict, norm: str = "frozen_bn") -> dict:
+    """The inverse of :func:`from_jax_variables`: a ``state_dict`` of a
+    model whose ``backbone.norm`` is ``norm`` -> a ``{"params",
+    "constants"}`` tree of numpy arrays (``"batch_stats"`` under ``bn``;
+    :func:`collection`).  A collection with nothing in it is left out, as
+    flax has none: VGG-16 and ``gn`` have no ``constants``."""
+    tree: dict = {"params": {}, "constants": {}, "batch_stats": {}}
     for key, value in state_dict.items():
         path = key.split(".")
-        coll = "constants" if is_constant(key, state_dict) else "params"
+        coll = collection(key, state_dict, norm)
         arr = value.detach().cpu().numpy()
         if key in _TRANSPOSED:
             path, arr = path[:-1] + ["kernel"], arr.transpose(2, 3, 0, 1)[::-1, ::-1]
@@ -134,16 +158,21 @@ _TRUNC_STD = 0.87962566103423978
 def init_variables(cfg: ModelConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:
     """A fresh ``state_dict`` with the flax initializers' distributions:
     lecun-normal conv and dense kernels, normal(0.01)/normal(0.001) head
-    kernels, zero biases, identity FrozenBN.  CPU tensors."""
+    kernels, zero biases, identity norms (``scale`` and ``var`` 1, ``bias``
+    and ``mean`` 0, whatever ``backbone.norm``).  CPU tensors."""
     from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
+    from mx_rcnn_tpu_torch.models.norm import BatchNorm, FrozenBatchNorm, GroupNorm
 
-    shapes = TwoStageDetector(cfg, device="meta").state_dict()
+    model = TwoStageDetector(cfg, device="meta")
+    shapes = model.state_dict()
+    norms = {name for name, m in model.named_modules()
+             if isinstance(m, (FrozenBatchNorm, BatchNorm, GroupNorm))}
     out = {}
     with torch.no_grad():
         for key, t in shapes.items():
             value = torch.empty(t.shape, dtype=torch.float32)
             prefix, leaf = key.rsplit(".", 1)
-            if f"{prefix}.var" in shapes:                  # FrozenBN constants
+            if prefix in norms:
                 value.fill_(1.0 if leaf in ("scale", "var") else 0.0)
             elif leaf == "bias":
                 value.zero_()
