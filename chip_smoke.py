@@ -218,6 +218,32 @@ when every phase passed):
    plain version and timed as in phase 3: the ``kernels`` line's
    ``@accum`` entries, counted over (1) alone; phase 7g's launches count
    in B1's and B2's entries as well.  The rehearsal cuts it as phase 7c.
+7h. Evaluation breadth (:func:`evalx_phase`), ``r50_fpn_coco`` at full
+   width (800x1344, batch 8, 1000 proposals, bf16) on phase 5's state,
+   saved as a checkpoint with classes 1-4 favoured: (a) three ``eval_cli``
+   processes on the card, 64 images in 4 shards of 2 batches: one
+   uninterrupted (exit 0); one sent a real SIGTERM once its first shard
+   file exists (exit 75, 1-3 shards on disk); that one resumed with
+   ``--resume`` (exit 0, the shards on disk untouched): the two dumps
+   byte-identical, the printed metrics equal.  (b) ``run_eval`` with
+   ``shard_dir`` in this process, counts set to 0 before and read after:
+   B1 launched as often as in phase 6's unsharded run; img/s after the
+   first shard printed beside phase 6's.  (c) The first run's dump as a
+   COCO results file (COCO's sparse category ids) and comp4 files, read
+   back and scored, and ``reeval_cli.main``: the reeval equals the first
+   run's metrics exactly, each file equals run 1's detections rounded
+   its way, within 1e-3 (COCO) and 2e-2 (comp4) of run 1.  (d)
+   ``mask_r50_fpn_coco`` (random weights from the seed) evaluated on 16
+   images with the native library (it must build; its ``calls`` above
+   0) and on the numpy path: dumps byte-identical, metrics equal; paste,
+   RLE encode and ``rle_iou`` ms a detection printed for each.  (e)
+   ``demo_cli.main`` on an image path (without PIL or matplotlib: a
+   refusal naming it before any model is built); the demo's
+   ``serve_image`` on a 480x640 image through ``build_engine``, equal to
+   ``detect_image``, B1 launched on the request; ``eval_cli --vis 2``
+   (without matplotlib: refused before the first batch, naming it; with
+   it: 2 PNGs).  B1's launches in (b), (d) and (e) count in its entry.
+   The rehearsal runs it on phase 5's tiny state at batch 8 on the CPU.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -243,6 +269,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -926,19 +953,25 @@ def captured_backward(store: list, keep, size=None):
         roi_align_mod.MultilevelRoiAlign.backward = staticmethod(backward)
 
 
-def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
-    """Phase 5: r50_fpn_coco trained at full width for ``steps`` steps
-    through ``train/loop.py::train``."""
-    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
-
+def train_overrides(rehearsal: bool, seed: int) -> list[str]:
+    """Phase 5's overrides of its preset (``r50_fpn_coco``; the rehearsal's
+    ``tiny_synthetic``)."""
     # r50_fpn_coco freezes the stem and stage 1; the tiny rehearsal is
     # given the same freeze so that it has frozen parameters to check.
     overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}", "data.dataset=synthetic",
                  "train.log_every=1"]
     if rehearsal:
         overrides.append("model.backbone.freeze_stages=2")
+    return overrides
+
+
+def train_phase(dev, rehearsal: bool, seed: int, steps: int = 5) -> dict:
+    """Phase 5: r50_fpn_coco trained at full width for ``steps`` steps
+    through ``train/loop.py::train``."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+
     cfg = apply_overrides(get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco"),
-                          overrides)
+                          train_overrides(rehearsal, seed))
     # At the rehearsal's 128x128 no sampled anchor or roi reaches P4 or P5,
     # so the biases of those two FPN outputs get no gradient.
     return train_run(dev, rehearsal, cfg, "train", steps, unmoved=2 if rehearsal else 0)
@@ -1615,7 +1648,7 @@ def eval_phase(dev, rehearsal: bool, trained: dict) -> dict:
             if not rehearsal and run["roi_align"] < 1:
                 raise AssertionError(f"eval {mode}: B1 never launched")
             out[mode] = {"img_s": n / wall, "img_s_steady": steady, "img_s_per_batch": per_batch,
-                         "metrics": metrics}
+                         "metrics": metrics, "launches": run}
 
         first = first_batch_reference(dev, cfg, restored.model.state_dict(), roidb, batch,
                                       "eval")
@@ -2549,8 +2582,10 @@ def mask_eval(dev, rehearsal: bool, trained: dict, counters: dict) -> dict:
     from mx_rcnn_tpu_torch.cli.eval_cli import run_eval
     from mx_rcnn_tpu_torch.data.datasets import build_dataset
     from mx_rcnn_tpu_torch.data.loader import eval_index_specs
-    from mx_rcnn_tpu_torch.evalutil import pred_eval
     from mx_rcnn_tpu_torch.evalutil.detections import load_detections
+
+    # The module (the package exports the function of the same name).
+    pred_eval = importlib.import_module("mx_rcnn_tpu_torch.evalutil.pred_eval")
 
     cfg, state = trained["cfg"], trained["state"]
     with torch.no_grad():
@@ -3635,6 +3670,510 @@ def ladder_kernels(dev, rehearsal: bool, seed: int, cfg, variables, store: dict,
              "nms@small": found["nms"]}, launches)
 
 
+# Phase 7h: evaluation breadth on r50_fpn_coco, and Mask R-CNN's host mask
+# work on each RLE path.
+EVALX_SHARD_SIZE = 2
+# COCO 2017's 80 category ids, the sparse ids a COCO results file carries
+# (``CocoDataset.label_to_cat`` on COCO's annotation files): the synthetic
+# set's ids are dense, and the card's machine cannot decode a COCO image.
+COCO_CATEGORY_IDS = (*range(1, 12), *range(13, 26), 27, 28, *range(31, 45), *range(46, 66), 67,
+                     70, *range(72, 83), *range(84, 91))
+
+
+def printed_metrics(stdout: str) -> dict:
+    """The ``name = value`` lines a CLI printed."""
+    out = {}
+    for line in stdout.splitlines():
+        name, sep, value = line.partition(" = ")
+        if sep and name and " " not in name:
+            out[name] = value
+    return out
+
+
+def shard_files(shard_dir: str) -> dict:
+    """The shard files under ``shard_dir``: name -> (mtime_ns, bytes)."""
+    out = {}
+    for name in sorted(os.listdir(shard_dir)) if os.path.isdir(shard_dir) else ():
+        if name.startswith("shard-") and name.endswith(".json"):
+            path = os.path.join(shard_dir, name)
+            with open(path, "rb") as f:
+                out[name] = (os.stat(path).st_mtime_ns, f.read())
+    return out
+
+
+def evalx_preempt(work: str, eval_args: list, n: int) -> dict:
+    """Phase 7h (a): three ``eval_cli`` processes over the checkpoint,
+    ``n`` images in shards of 2 batches: run 1 uninterrupted; run 2, beside
+    it, sent a real SIGTERM once its first shard file exists (exit 75, some
+    but not all shards on disk); run 3, run 2 again with ``--resume`` (exit
+    0, the shards on disk untouched).  The dumps of runs 1 and 3
+    byte-identical and their printed metrics equal.  Returns run 1's dump
+    path, printed metrics and shard count."""
+    import signal
+
+    cmd = [sys.executable, "-m", "mx_rcnn_tpu_torch.cli.eval_cli", *eval_args, "--limit",
+           str(n), "--shard-size", str(EVALX_SHARD_SIZE)]
+    shards = {k: os.path.join(work, f"S{k}") for k in (1, 2)}
+    dumps = {k: os.path.join(work, f"D{k}.json") for k in (1, 2)}
+    procs = []
+
+    def start(k, tag, *extra):
+        files = [open(os.path.join(work, f"{tag}.{s}"), "w+") for s in ("out", "err")]
+        procs.append((subprocess.Popen(
+            [*cmd, "--shard-dir", shards[k], "--dump", dumps[k], *extra], cwd=ROOT,
+            stdout=files[0], stderr=files[1], text=True), files))
+        return len(procs) - 1
+
+    def finish(i, timeout=600):
+        p, files = procs[i]
+        rc = p.wait(timeout=timeout)
+        text = []
+        for f in files:
+            f.seek(0)
+            text.append(f.read())
+        return rc, *text
+
+    try:
+        t0 = time.perf_counter()
+        run1, run2 = start(1, "run1"), start(2, "run2")
+        first = os.path.join(shards[2], "shard-00000.json")
+        while not os.path.exists(first) and procs[run2][0].poll() is None:
+            time.sleep(0.002)
+        t_sig = time.perf_counter()
+        procs[run2][0].send_signal(signal.SIGTERM)
+        rc2, _, err2 = finish(run2)
+        t_exit2 = time.perf_counter()
+        on_disk = shard_files(shards[2])
+        rc1, out1, err1 = finish(run1)
+        t1 = time.perf_counter()
+        rc3, out3, err3 = finish(start(2, "run3", "--resume"))
+        t3 = time.perf_counter()
+    finally:
+        for p, files in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            for f in files:
+                f.close()
+    after = shard_files(shards[2])
+    with open(os.path.join(shards[1], "manifest.json")) as f:
+        num_shards = json.load(f)["num_shards"]
+    with open(dumps[1], "rb") as f1, open(dumps[2], "rb") as f2:
+        d1, d2 = f1.read(), f2.read()
+    m1, m3 = printed_metrics(out1), printed_metrics(out3)
+    untouched = {k: after.get(k) for k in on_disk} == on_disk
+    log(f"[evalx:preempt] {n} images, {num_shards} shards of {EVALX_SHARD_SIZE} batches: run 1 "
+        f"rc={rc1} in {t1 - t0:.2f} s (process start, build and restore included); run 2 "
+        f"SIGTERM {t_sig - t0:.2f} s after its start, rc={rc2} {t_exit2 - t_sig:.2f} s later "
+        f"with {len(on_disk)} shards on disk {sorted(on_disk)}; run 3 (--resume) rc={rc3} in "
+        f"{t3 - t1:.2f} s, {len(after) - len(on_disk)} shards computed, the shards on disk "
+        f"untouched={untouched}; dumps byte-identical={d1 == d2} ({len(d1)} bytes); printed "
+        f"metrics equal={m1 == m3} {m1}")
+    problems = []
+    if (rc1, rc2, rc3) != (0, 75, 0):
+        problems.append(f"exit codes {rc1}, {rc2}, {rc3} (want 0, 75, 0)")
+    if not 1 <= len(on_disk) < num_shards or len(after) != num_shards:
+        problems.append(f"{len(on_disk)} shards on disk after the SIGTERM, {len(after)} after "
+                        f"the resume, of {num_shards}")
+    if not untouched:
+        problems.append("the resume rewrote a shard that was on disk")
+    if d1 != d2 or not m1 or m1 != m3:
+        problems.append(f"dumps byte-identical={d1 == d2}, printed metrics {m1} vs {m3}")
+    if problems:
+        for name, text in (("run 1", err1), ("run 2", err2), ("run 3", err3)):
+            log(f"[evalx:preempt] {name} stderr, last lines:\n{text[-3000:]}")
+        raise AssertionError(f"evalx preempt: {problems}")
+    return {"dump": dumps[1], "metrics": m1, "num_shards": num_shards}
+
+
+def evalx_inprocess(dev, cfg, ckpt_dir: str, work: str, n: int, phase6: dict,
+                    counters: dict) -> dict:
+    """Phase 7h (b): ``run_eval(shard_dir=...)`` in this process on the same
+    checkpoint and images, the counts set to 0 just before and read just
+    after: B1 launched as often as phase 6's unsharded run of the same
+    images in the same ``test.nms_mode``; img/s after the first shard
+    printed beside phase 6's after the first batch."""
+    from mx_rcnn_tpu_torch.cli.eval_cli import run_eval
+
+    ticks = []
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = run_eval(cfg, ckpt_dir=ckpt_dir, limit=n, device=dev,
+                       shard_dir=os.path.join(work, "S_inproc"), shard_size=EVALX_SHARD_SIZE,
+                       dump_path=os.path.join(work, "D_inproc.json"),
+                       progress=lambda k: ticks.append((time.perf_counter(), k)))
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    (ta, ka), (tb, kb) = ticks[0], ticks[-1]
+    img_s = (kb - ka) / (tb - ta) if tb > ta else float("nan")
+    mode = cfg.model.test.nms_mode
+    ref = phase6[mode]
+    log(f"[evalx:sharded] run_eval in this process, {n} images in {len(ticks)} shards: "
+        f"{n / wall:.2f} img/s end to end ({wall:.2f} s, restore included), {img_s:.2f} img/s "
+        f"after the first shard (shard writes included) against phase 6's "
+        f"{ref['img_s_steady']:.2f} img/s after the first batch, unsharded ({mode}); B1 "
+        f"launches {launches['roi_align']} (phase 6: {ref['launches']['roi_align']}); metrics "
+        f"{json.dumps(metrics, sort_keys=True)}")
+    if launches["roi_align"] != ref["launches"]["roi_align"]:
+        raise AssertionError(f"evalx sharded: B1 launched {launches['roi_align']} times, phase 6 "
+                             f"{ref['launches']['roi_align']}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError("evalx sharded: non-finite metrics")
+    return {"launches": launches, "img_s_after_first_shard": img_s, "metrics": metrics}
+
+
+def evalx_submission(cfg, config_args: list, work: str, run1: dict, n: int) -> None:
+    """Phase 7h (c): run 1's dump written as a COCO results file in
+    :data:`COCO_CATEGORY_IDS` and as VOC comp4 files, each read back and
+    scored, and rescored by ``reeval_cli.main``.  The reeval equals run
+    1's metrics exactly.  The files round the detections (COCO: boxes to 2
+    decimals, scores to 5; comp4: 1 and 3), so each must score exactly as
+    run 1's detections rounded the same way do, and within the JAX
+    package's round-trip bounds of run 1's (1e-3, 2e-2)."""
+    from mx_rcnn_tpu_torch.cli import reeval_cli
+    from mx_rcnn_tpu_torch.cli.common import submission_imageset
+    from mx_rcnn_tpu_torch.data.datasets import build_dataset
+    from mx_rcnn_tpu_torch.evalutil import (
+        evaluate_detections,
+        load_detections,
+        read_coco_results,
+        read_voc_dets,
+        write_coco_results,
+        write_voc_dets,
+    )
+
+    dataset = build_dataset(cfg.data, train=False)
+    roidb = dataset.roidb()
+    if len(roidb) != n:   # reeval scores the whole split
+        raise AssertionError(f"evalx: {n} images evaluated of a {len(roidb)}-image split")
+    per_image = load_detections(run1["dump"])
+    k = cfg.model.num_classes
+    score = lambda dets: evaluate_detections(dets, roidb, k)  # noqa: E731
+    base = score(per_image)
+    label_to_cat = dict(enumerate(COCO_CATEGORY_IDS[:k - 1], 1))
+    t0 = time.perf_counter()
+    n_coco = write_coco_results(os.path.join(work, "results.json"), per_image, label_to_cat)
+    coco = score(read_coco_results(os.path.join(work, "results.json"),
+                                   {v: c for c, v in label_to_cat.items()}))
+    imageset = submission_imageset(cfg)
+    paths = write_voc_dets(os.path.join(work, "voc"), per_image, dataset.classes, imageset)
+    voc = score(read_voc_dets(os.path.join(work, "voc"), dataset.classes, imageset))
+    t_files = time.perf_counter() - t0
+
+    def rounded(d: dict, coco_style: bool) -> dict:
+        """The detections as the file carries them, read back."""
+        boxes, scores = [], []
+        for (x1, y1, x2, y2), s in zip(np.asarray(d["boxes"], np.float64).tolist(),
+                                       np.asarray(d["scores"], np.float64).tolist()):
+            if coco_style:
+                x, y, w, h = (round(v, 2) for v in (x1, y1, x2 - x1 + 1, y2 - y1 + 1))
+                boxes.append([x, y, x + w - 1, y + h - 1])
+                scores.append(round(s, 5))
+            else:
+                boxes.append([float(f"{v + 1:.1f}") - 1 for v in (x1, y1, x2, y2)])
+                scores.append(float(f"{s:.3f}"))
+        return {"boxes": np.asarray(boxes, np.float32).reshape(-1, 4),
+                "scores": np.asarray(scores, np.float32), "classes": d["classes"]}
+
+    named = len(dataset.classes)   # comp4 files exist for the named classes only
+    want_coco = score({i: rounded(d, True) for i, d in per_image.items()})
+    want_voc = score({i: rounded({f: v[d["classes"] < named] for f, v in d.items()}, False)
+                      for i, d in per_image.items()})
+    t0 = time.perf_counter()
+    reeval = reeval_cli.main([run1["dump"], *config_args])
+    t_reeval = time.perf_counter() - t0
+    shown = {name: f"{v:.4f}" for name, v in base.items()}
+    worst = {name: max(abs(coco[m] - base[m]) for m in base) if name == "coco" else
+             max(abs(voc[m] - base[m]) for m in base) for name in ("coco", "voc")}
+    log(f"[evalx:submission] COCO results {n_coco} entries in COCO's category ids, "
+        f"{len(paths)} comp4 files, written and read back in {t_files:.2f} s; reeval "
+        f"{t_reeval:.2f} s; run 1's dump rescored = run 1's printed metrics: "
+        f"{shown == run1['metrics']}; reeval = run 1: {reeval == base}; COCO file = its "
+        f"rounding: {coco == want_coco}, off run 1 by at most {worst['coco']:.3g}; comp4 = its "
+        f"rounding: {voc == want_voc}, off run 1 by at most {worst['voc']:.3g}")
+    if shown != run1["metrics"] or reeval != base or coco != want_coco or voc != want_voc \
+            or worst["coco"] > 1e-3 or worst["voc"] > 2e-2:
+        raise AssertionError("evalx submission: a file or the reeval does not rescore as it "
+                             "must")
+
+
+def evalx_mask(dev, rehearsal: bool, seed: int, work: str, counters: dict) -> dict:
+    """Phase 7h (d): ``mask_r50_fpn_coco`` at full width, random weights
+    from the seed with classes 1-4 favoured, evaluated on 16 synthetic
+    images twice through ``run_eval``: with the native library (required
+    to build; its ``calls`` above 0), then on the numpy path (the
+    library's loader patched to fail, as ``mask_eval`` patches).  The dumps
+    byte-identical and the metrics equal; paste, RLE encode and
+    ``rle_iou`` timed apart, in ms a detection, on each path.  B1's
+    launches of the native run are counted."""
+    from mx_rcnn_tpu_torch import native
+    from mx_rcnn_tpu_torch.cli.eval_cli import run_eval
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.evalutil import coco_eval, postprocess
+    from mx_rcnn_tpu_torch.native import lib
+    from mx_rcnn_tpu_torch.train.loop import build_all
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    t0 = time.perf_counter()
+    built = native.available()
+    t_build = time.perf_counter() - t0
+    if not built:
+        raise AssertionError("evalx mask: the native library did not build or load")
+    cfg = apply_overrides(get_config(MASK_CONFIG), ["data.dataset=synthetic",
+                                                    *c4_overrides(rehearsal)])
+    variables = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    state = build_all(cfg, dev, variables)[2]
+    n = 4 if rehearsal else 16
+    spans = {"paste": (postprocess, "paste_mask"), "rle_encode": (postprocess, "rle_encode"),
+             "rle_iou": (coco_eval, "rle_iou")}
+    runs = {}
+    for path in ("native", "numpy"):
+        took = {k: 0.0 for k in spans}
+        originals = {k: getattr(mod, name) for k, (mod, name) in spans.items()}
+
+        def timed(key, fn):
+            def call(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    took[key] += time.perf_counter() - t
+            return call
+
+        calls = (lib.rle_encode_native.calls, lib.rle_iou_native.calls)
+        load = lib._load
+        for fn in counters.values():
+            fn.launches = 0
+        dump = os.path.join(work, f"mask_{path}.json")
+        try:
+            for k, (mod, name) in spans.items():
+                setattr(mod, name, timed(k, originals[k]))
+            if path == "numpy":
+                lib._load = lambda: None
+            t = time.perf_counter()
+            metrics = run_eval(cfg, state=state, limit=n, device=dev, dump_path=dump)
+            wall = time.perf_counter() - t
+        finally:
+            lib._load = load
+            for k, (mod, name) in spans.items():
+                setattr(mod, name, originals[k])
+        with open(dump, "rb") as f:
+            raw = f.read()
+        n_dets = sum(len(d["scores"]) for d in json.loads(raw).values())
+        runs[path] = {"metrics": metrics, "raw": raw, "wall": wall, "n_dets": n_dets,
+                      "ms_a_det": {k: 1e3 * v / max(n_dets, 1) for k, v in took.items()},
+                      "calls": (lib.rle_encode_native.calls - calls[0],
+                                lib.rle_iou_native.calls - calls[1]),
+                      "launches": {k: fn.launches for k, fn in counters.items()}}
+    a, b = runs["native"], runs["numpy"]
+    same = a["raw"] == b["raw"]
+    segm = {k: v for k, v in a["metrics"].items() if k.startswith("segm/")}
+    for path, r in runs.items():
+        ms = {k: round(v, 4) for k, v in r["ms_a_det"].items()}
+        log(f"[evalx:mask:{path}] {n} synthetic images, {r['n_dets']} detections: "
+            f"{n / r['wall']:.2f} img/s end to end ({r['wall']:.2f} s); ms a detection {ms}; "
+            f"native calls (rle_encode, rle_iou) {r['calls']}; launches {r['launches']}")
+    log(f"[evalx:mask] native library built and loaded in {t_build:.2f} s; dumps "
+        f"byte-identical={same}; metrics equal={a['metrics'] == b['metrics']}; segm "
+        f"{json.dumps(segm, sort_keys=True)}")
+    if not same or a["metrics"] != b["metrics"] or not segm or not a["n_dets"] \
+            or min(a["calls"]) < 1 or max(b["calls"]) > 0:
+        raise AssertionError("evalx mask: the native and numpy paths disagree, or the native "
+                             "library was not called")
+    if not rehearsal and a["launches"]["roi_align"] < 1:
+        raise AssertionError("evalx mask: B1 never launched")
+    return {"launches": a["launches"], "ms_a_det": {p: r["ms_a_det"] for p, r in runs.items()}}
+
+
+def evalx_demo(dev, rehearsal: bool, seed: int, cfg, config_args: list, eval_args: list,
+               work: str, counters: dict) -> dict:
+    """Phase 7h (e): ``demo_cli.main`` on an image path (without PIL: a
+    ``SystemExit`` naming PIL before any model is built; without
+    matplotlib: one naming matplotlib; with both, it runs); the demo's
+    array function ``serve_image`` on a synthetic 480x640 uint8 image
+    through ``build_engine`` at full width (random weights from the seed,
+    classes 1-4 favoured), the counts set to 0 before and read after, less
+    the engine's warm-up: B1 launched, the detections equal to
+    ``detect_image``'s; ``eval_cli --vis 2`` (without matplotlib: refused
+    before the first batch, naming it; with it: 2 PNGs)."""
+    from mx_rcnn_tpu_torch.cli import demo_cli, eval_cli
+    from mx_rcnn_tpu_torch.serve import engine as engine_mod
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    have = {}
+    for pkg in ("PIL", "matplotlib"):
+        try:
+            importlib.import_module(pkg)
+            have[pkg] = True
+        except ImportError:
+            have[pkg] = False
+    missing = next((p for p in ("PIL", "matplotlib") if not have[p]), None)
+    h, w = (48, 64) if rehearsal else (480, 640)
+    image = np.random.RandomState(seed).randint(0, 256, (h, w, 3)).astype(np.uint8)
+    path = os.path.join(work, "demo.png")
+    if have["PIL"]:
+        from PIL import Image
+
+        Image.fromarray(image).save(path)
+    else:
+        with open(path, "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n not decodable without PIL")
+    served_calls = []
+    serve = demo_cli.serve_image
+
+    def watched(*args, **kw):
+        served_calls.append(1)
+        return serve(*args, **kw)
+
+    drawn = os.path.join(work, "demo_det.png")
+    argv = [path, *config_args, "--random-params", "--out", drawn]
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    refusal = None
+    demo_cli.serve_image = watched
+    try:
+        try:
+            demo_cli.main(argv)
+        except SystemExit as e:
+            refusal = str(e)
+    finally:
+        demo_cli.serve_image = serve
+    log(f"[evalx:demo] PIL {have['PIL']}, matplotlib {have['matplotlib']}: demo_cli.main "
+        f"{'refused: ' + refusal if refusal else 'ran'}; models built {len(served_calls)}")
+    if missing is not None and (refusal is None or missing not in refusal or served_calls):
+        raise AssertionError(f"evalx demo: without {missing} the demo did not refuse before "
+                             f"building a model ({refusal!r}, {len(served_calls)})")
+    if missing is None and (refusal is not None or not os.path.exists(drawn)):
+        raise AssertionError(f"evalx demo: the demo failed ({refusal!r})")
+
+    variables = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    warm = {"launches": 0}
+    warmup = engine_mod.DetectorRunner.warmup
+
+    def counted_warmup(runner):
+        before = counters["roi_align"].launches
+        try:
+            return warmup(runner)
+        finally:
+            warm["launches"] += counters["roi_align"].launches - before
+
+    for fn in counters.values():
+        fn.launches = 0
+    engine_mod.DetectorRunner.warmup = counted_warmup
+    try:
+        t0 = time.perf_counter()
+        served = demo_cli.serve_image(cfg, variables, image, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod.DetectorRunner.warmup = warmup
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["roi_align"] -= warm["launches"]
+    direct = demo_cli.detect_image(cfg, variables, image, device=dev)
+    same = all(np.array_equal(served[k], v) for k, v in zip(("boxes", "scores", "classes"),
+                                                          direct[:3]))
+    log(f"[evalx:demo] serve_image {h}x{w} through build_engine in {wall:.2f} s (engine start and "
+        f"warm-up included), level {served['level']}, {len(served['scores'])} detections; "
+        f"equal to detect_image's={same}; B1 launches on the request {launches['roi_align']} "
+        f"(warm-up's {warm['launches']} not counted)")
+    if not same or not len(served["scores"]):
+        raise AssertionError("evalx demo: the served detections differ from detect_image's, or "
+                             "there are none")
+    if not rehearsal and launches["roi_align"] < 1:
+        raise AssertionError("evalx demo: B1 never launched on the request")
+
+    vis_refusal, pngs = None, []
+    load = eval_cli._eval_loader
+
+    def no_batch(*args, **kw):
+        raise AssertionError("the eval loader was built despite --vis without matplotlib")
+
+    if not have["matplotlib"]:
+        eval_cli._eval_loader = no_batch
+    try:
+        eval_cli.main([*eval_args, "--limit", "4", "--vis", "2"])
+    except RuntimeError as e:
+        vis_refusal = str(e)
+    finally:
+        eval_cli._eval_loader = load
+    vis_dir = os.path.join(work, "evalx", cfg.name, "vis")
+    if os.path.isdir(vis_dir):
+        pngs = sorted(os.listdir(vis_dir))
+    log(f"[evalx:vis] eval_cli --vis 2: {'refused: ' + vis_refusal if vis_refusal else 'ran'}; "
+        f"PNGs {pngs}")
+    if have["matplotlib"] != (vis_refusal is None) or \
+            (vis_refusal is not None and "matplotlib" not in vis_refusal) or \
+            len(pngs) != (2 if have["matplotlib"] else 0):
+        raise AssertionError(f"evalx vis: {vis_refusal!r}, {pngs}")
+    return {"launches": launches}
+
+
+def evalx_phase(dev, rehearsal: bool, seed: int, trained: dict, phase6: dict) -> dict:
+    """Phase 7h: evaluation breadth on ``r50_fpn_coco`` at full width
+    (800x1344, ``test.per_device_batch`` 8, 1000 proposals, bf16): phase
+    5's trained state saved as a checkpoint with classes 1-4 favoured (+4
+    on their bias, as phase 6 favours them), then (a) preemption and
+    resume through real ``eval_cli`` processes (:func:`evalx_preempt`),
+    (b) the sharded eval in this process (:func:`evalx_inprocess`), (c) the
+    submission files and reeval (:func:`evalx_submission`), (d) Mask
+    R-CNN's host mask work on the native and the numpy path
+    (:func:`evalx_mask`), (e) the demo and ``--vis`` (:func:`evalx_demo`).
+    The rehearsal runs it on phase 5's tiny state, at batch 8 on the CPU.
+    Returns the paths' launches."""
+    import shutil
+
+    from mx_rcnn_tpu_torch.config import apply_overrides
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
+    )
+    from mx_rcnn_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    counters = {"roi_align": multilevel_roi_align_cuda, "fused_middle": fused_middle_levels,
+                "nms": nms_mask_cuda, "roi_align_bwd": multilevel_roi_align_bwd_cuda}
+    extra = ["model.test.per_device_batch=8"] if rehearsal else []
+    config_args = ["--config", trained["cfg"].name]
+    for o in [*train_overrides(rehearsal, seed), *extra]:
+        config_args += ["--set", o]
+    cfg = apply_overrides(trained["cfg"], extra)
+    n = 64
+    work = os.path.join(ROOT, "runs", f"chip_smoke_evalx_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        ckpt_dir = os.path.join(work, "ckpt")
+        bias = trained["state"].model.box_head.cls_score.bias
+        base = bias.detach().clone()
+        with torch.no_grad():
+            bias[1:5] += 4.0
+        try:
+            ckpt.save_checkpoint(ckpt_dir, trained["state"])
+        finally:
+            with torch.no_grad():
+                bias.copy_(base)
+        eval_args = [*config_args, "--ckpt", ckpt_dir, "--workdir", os.path.join(work, "evalx")]
+        if dev.type == "cpu":
+            eval_args += ["--device", "cpu"]
+        run1 = evalx_preempt(work, eval_args, n)
+        sharded = evalx_inprocess(dev, cfg, ckpt_dir, work, n, phase6, counters)
+        evalx_submission(cfg, config_args, work, run1, n)
+        mask = evalx_mask(dev, rehearsal, seed, work, counters)
+        demo = evalx_demo(dev, rehearsal, seed, cfg, config_args, eval_args, work, counters)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[evalx] phase 7h in {time.perf_counter() - t_phase:.2f} s")
+    paths = {"evalx_sharded": sharded, "evalx_mask": mask, "evalx_demo": demo}
+    return {"paths": {k: {"launches": {c: v["launches"].get(c, 0) for c in counters}}
+                      for k, v in paths.items()},
+            "img_s_after_first_shard": sharded["img_s_after_first_shard"],
+            "mask_ms_a_det": mask["ms_a_det"]}
+
+
 # The kernels of the main paths: source, the TPU kernel it replaces, and
 # the paths that launch it.  (``roi_align_f32`` and ``roi_align_bwd_f32``
 # are checked as well, but the paths run bf16, so they are no entries of
@@ -3648,11 +4187,12 @@ MASK_PATHS = {"roi_align": ("mask_full", "mask_train", "mask_eval"),
 LADDER_PATHS = {"roi_align": ("ladder",), "fused_middle": ("ladder",),
                 "nms": ("ladder_proposals",)}
 FORMS_PATHS = ("forms_accum", "forms")
+EVALX_PATHS = ("evalx_sharded", "evalx_mask", "evalx_demo")
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
                   ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval",
                    *FAST_PATHS["roi_align"], *MASK_PATHS["roi_align"],
-                   *LADDER_PATHS["roi_align"], *FORMS_PATHS)),
+                   *LADDER_PATHS["roi_align"], *FORMS_PATHS, *EVALX_PATHS)),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                       "mx_rcnn_tpu/ops/pallas/roi_align.py:623",
                       ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"],
@@ -3698,8 +4238,6 @@ def import_tree(root: str, modules) -> dict:
     tree ``root``, beside this tree's: this tree's modules leave
     ``sys.modules`` while ``root``'s load, and come back after.  Raises
     when a module does not come from ``root``."""
-    import importlib
-
     root = os.path.abspath(root)
     ours = lambda k: k == PKG or k.startswith(PKG + ".")  # noqa: E731
     mine = {k: sys.modules.pop(k) for k in [k for k in sys.modules if ours(k)]}
@@ -3859,6 +4397,8 @@ def main() -> int:
     paths.update(ladder["paths"])
     forms = forms_phase(dev, args.cpu_rehearsal, args.seed)
     paths.update(forms["paths"])
+    evalx = evalx_phase(dev, args.cpu_rehearsal, args.seed, paths["train"], paths["eval"])
+    paths.update(evalx["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)

@@ -53,7 +53,8 @@ import os
 import sys
 from typing import Optional
 
-from mx_rcnn_tpu_torch.config import Config, apply_overrides, available_configs, get_config
+from mx_rcnn_tpu_torch.cli.common import add_config_args, config_from_args, setup_logging
+from mx_rcnn_tpu_torch.config import Config
 
 log = logging.getLogger("mx_rcnn_tpu_torch")
 
@@ -70,10 +71,7 @@ PHASES = (
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--config", default="vgg16_voc07", choices=available_configs())
-    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                   help="config override, e.g. data.root=data/VOCdevkit (repeatable)")
-    p.add_argument("--workdir", default=None, help="run directory (checkpoints, dumps)")
+    add_config_args(p, default="vgg16_voc07")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     p.add_argument("--phase-steps", type=int, default=None,
                    help="steps a phase (default: the schedule's total_steps)")
@@ -152,9 +150,8 @@ def alternate_train(cfg: Config, phase_steps: Optional[int] = None,
 def main(argv=None) -> dict:
     """Train the schedule, then evaluate; returns the metrics dict."""
     args = parse_args(argv)
-    cfg = apply_overrides(get_config(args.config), args.set)
-    if args.workdir:
-        cfg = dataclasses.replace(cfg, workdir=args.workdir)
+    setup_logging(args.verbose)
+    cfg = config_from_args(args)
     state = alternate_train(cfg, phase_steps=args.phase_steps, workdir=cfg.workdir,
                             dump_proposals_pkl=not args.no_proposal_dump,
                             pretrained=args.pretrained,

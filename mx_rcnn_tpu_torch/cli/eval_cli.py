@@ -23,37 +23,84 @@ testing, the reference's ``test_rcnn --has_rpn false``):
     python -m mx_rcnn_tpu_torch.cli.eval_cli --config vgg16_voc07 \
         --ckpt runs/vgg16_voc07/ckpt --from-proposals runs/val.pkl
 
-Not ported: sharded and resumable evaluation, ``--dump-coco`` and
-``--dump-voc``, ``--vis``.
+Sharded and preemptible (``--resumable``, ``--shard-dir``): the eval
+schedule is cut into shards of ``--shard-size`` batches, each written to
+its own file as it finishes; SIGTERM or SIGINT let the shard in flight
+land, then the run exits with code 75, and ``--resume`` recomputes only
+the missing shards.  The dump (``--dump``) is merged from the shard files
+and is byte for byte an uninterrupted run's:
+
+    python -m mx_rcnn_tpu_torch.cli.eval_cli --config r50_fpn_coco \
+        --ckpt runs/r50_fpn_coco/ckpt --shard-dir runs/shards --dump runs/d.json
+    # exit 75 after a SIGTERM; then the same command with --resume
+
+``--dump-coco RESULTS.JSON`` and ``--dump-voc DIR`` also write the
+submission files (a COCO results json in the original category ids; VOC
+comp4 det files), and ``--vis N`` draws the first N images into
+``<workdir>/<config>/vis`` (matplotlib; refused up front where it is not
+installed).  A record whose image cannot be read, or whose annotations
+are malformed or carry a class id at or above ``model.num_classes``, is
+quarantined to ``<workdir>/<config>/quarantine.jsonl`` and scored as a
+blank image: its gt counts as misses.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import pickle
 import sys
 from typing import Callable, Optional
 
-from mx_rcnn_tpu_torch.config import Config, apply_overrides, available_configs, get_config
+from mx_rcnn_tpu_torch.cli.common import (
+    add_config_args,
+    config_from_args,
+    default_use_07_metric,
+    setup_logging,
+    submission_imageset,
+)
+from mx_rcnn_tpu_torch.config import Config
 
 log = logging.getLogger("mx_rcnn_tpu_torch")
+
+# train/preemption.py's RESUMABLE_EXIT_CODE, for the help text.
+_RESUMABLE_CODE = 75
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--config", default="r50_fpn_coco", choices=available_configs())
-    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                   help="config override, e.g. data.dataset=synthetic (repeatable)")
+    add_config_args(p)
     p.add_argument("--ckpt", default=None,
                    help="checkpoint dir (default: <workdir>/<config name>/ckpt)")
     p.add_argument("--step", type=int, default=None, help="checkpoint step")
-    p.add_argument("--dump", default=None, help="write the detections here (json)")
+    p.add_argument("--dump", default=None, help="write the detections here (reeval input)")
+    p.add_argument("--dump-coco", default=None, metavar="RESULTS.JSON",
+                   help="also write a COCO results json in the original (sparse) category "
+                        "ids, the format the COCO server and pycocotools' loadRes score")
+    p.add_argument("--dump-voc", default=None, metavar="DIR",
+                   help="also write VOC comp4 per-class det files into DIR")
     p.add_argument("--limit", type=int, default=None, metavar="N",
                    help="evaluate only the first N images")
     p.add_argument("--use-07-metric", action=argparse.BooleanOptionalAction, default=None,
                    help="VOC 11-point AP (default: on for VOC2007 splits)")
+    p.add_argument("--vis", type=int, default=0, metavar="N",
+                   help="draw the first N evaluated images with their detections into "
+                        "<workdir>/<config>/vis (needs matplotlib)")
+    p.add_argument("--resumable", action="store_true",
+                   help="preemption-safe evaluation: shard files under --shard-dir; SIGTERM "
+                        "lets the shard in flight land and exits "
+                        f"{_RESUMABLE_CODE}, to be re-run with --resume")
+    p.add_argument("--shard-dir", default=None, metavar="DIR",
+                   help="where the shard files and manifest live (implies --resumable; "
+                        "default <workdir>/<config>/eval_shards)")
+    p.add_argument("--shard-size", type=int, default=8, metavar="N",
+                   help="eval batches a shard (default 8)")
+    p.add_argument("--shard-retries", type=int, default=1, metavar="N",
+                   help="retries of a failed shard before giving up (default 1)")
+    p.add_argument("--resume", action="store_true",
+                   help="skip the shards on disk (the schedule's fingerprint is checked)")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     p.add_argument("--proposals", default=None, metavar="OUT.PKL",
                    help="dump RPN proposals per image instead of evaluating (test_rpn)")
@@ -66,30 +113,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def default_use_07_metric(cfg: Config) -> bool:
-    """The 11-point AP for VOC2007 splits (the reference's choice), the
-    area metric everywhere else."""
-    return cfg.data.dataset == "voc" and cfg.data.val_split.startswith("2007")
-
-
 def _eval_loader(cfg: Config, batch_size: int, device, limit: Optional[int] = None,
                  proposals_path: Optional[str] = None, split: Optional[str] = None):
-    """-> (roidb, batches): the val split (or ``split``), cut to its first
-    ``limit`` images (the metric's roidb too, so absent images do not
-    score as misses), and its eval batches on ``device``, carrying the
-    best ``rpn.test_post_nms_top_n`` boxes an image of ``proposals_path``
-    when given."""
+    """-> (dataset, roidb, loader): the val split (or ``split``), cut to
+    its first ``limit`` images (the metric's roidb too, so absent images
+    do not score as misses), and its eval loader on ``device``
+    (``DetectionLoader(train=False)``), carrying the best
+    ``rpn.test_post_nms_top_n`` boxes an image of ``proposals_path`` when
+    given.  Records are checked against ``model.num_classes``, and the bad
+    ones quarantined to ``<workdir>/<name>/quarantine.jsonl``, as the JAX
+    eval loader does."""
     from mx_rcnn_tpu_torch.data.datasets import build_dataset
-    from mx_rcnn_tpu_torch.data.loader import eval_batches, load_proposals
+    from mx_rcnn_tpu_torch.data.loader import DetectionLoader, load_proposals
 
-    roidb = build_dataset(cfg.data, split=split, train=False).roidb()
+    dataset = build_dataset(cfg.data, split=split, train=False)
+    roidb = dataset.roidb()
     if limit is not None:
         roidb = roidb[:limit]
     if not roidb:
         raise ValueError("empty eval roidb")
     proposals = load_proposals(proposals_path) if proposals_path else None
-    return roidb, eval_batches(roidb, cfg.data, batch_size, device, proposals=proposals,
-                               num_proposals=cfg.model.rpn.test_post_nms_top_n)
+    loader = DetectionLoader(
+        roidb, cfg.data, batch_size, device, train=False, proposals=proposals,
+        num_proposals=cfg.model.rpn.test_post_nms_top_n, num_classes=cfg.model.num_classes,
+        quarantine_path=f"{cfg.workdir}/{cfg.name}/quarantine.jsonl" if cfg.workdir else None)
+    return dataset, roidb, loader
 
 
 def _restored_state(cfg: Config, ckpt_dir: Optional[str], step: Optional[int], device):
@@ -106,17 +154,35 @@ def run_eval(cfg: Config, state=None, ckpt_dir: Optional[str] = None, step: Opti
              dump_path: Optional[str] = None, use_07_metric: Optional[bool] = None,
              limit: Optional[int] = None, device=None,
              progress: Optional[Callable[[int], None]] = None,
-             proposals_path: Optional[str] = None) -> dict:
+             proposals_path: Optional[str] = None, vis_count: int = 0,
+             coco_results_path: Optional[str] = None, voc_dets_dir: Optional[str] = None,
+             shard_dir: Optional[str] = None, shard_size: int = 8, resume: bool = False,
+             shard_retries: int = 1) -> dict:
     """Evaluate ``state`` (a train state), or the checkpoint restored from
     ``ckpt_dir``, on the config's val split; returns the metrics dict.
-    ``progress`` gets the count of images done after each one.
-    ``proposals_path``: score that pkl's proposals instead of the RPN's."""
+    ``progress`` gets the count of images done (after each image, or with
+    ``shard_dir`` after each shard).  ``proposals_path``: score that pkl's
+    proposals instead of the RPN's.  ``coco_results_path`` /
+    ``voc_dets_dir``: also write the submission files.  ``vis_count``:
+    draw that many images into ``<workdir>/<name>/vis``.
+
+    ``shard_dir``: preemption-safe sharded evaluation
+    (``evalutil/pred_eval.py::collect_detections_sharded``): shard files
+    of ``shard_size`` batches, ``resume`` skipping the shards on disk,
+    SIGTERM or SIGINT letting the shard in flight land and raising
+    ``Preempted`` (``cli`` maps it to exit 75)."""
     from mx_rcnn_tpu_torch.data.datasets import VOC_CLASSES
     from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
     from mx_rcnn_tpu_torch.evalutil.pred_eval import pred_eval
     from mx_rcnn_tpu_torch.parallel.step import eval_variables, make_eval_step
+    from mx_rcnn_tpu_torch.train.preemption import PreemptionGuard
     from mx_rcnn_tpu_torch.utils.device import resolve_device
 
+    if vis_count > 0:
+        # Refused before any work: the drawing comes after the whole pass.
+        from mx_rcnn_tpu_torch.evalutil.vis import require_matplotlib
+
+        require_matplotlib()
     dev = resolve_device(device)
     if use_07_metric is None:
         use_07_metric = default_use_07_metric(cfg)
@@ -126,13 +192,35 @@ def run_eval(cfg: Config, state=None, ckpt_dir: Optional[str] = None, step: Opti
     model.load_state_dict(eval_variables(state))
     model.eval()
     eval_step = make_eval_step(pixel_stats=(cfg.data.pixel_mean, cfg.data.pixel_std))
-    roidb, batches = _eval_loader(cfg, max(cfg.model.test.per_device_batch, 1), dev, limit,
-                                  proposals_path)
+    dataset, roidb, loader = _eval_loader(cfg, max(cfg.model.test.per_device_batch, 1), dev,
+                                          limit, proposals_path)
     style = "voc" if cfg.data.dataset == "voc" else "coco"
-    class_names = ("__background__",) + VOC_CLASSES if style == "voc" else None
-    return pred_eval(eval_step, model, batches, roidb, cfg.data, cfg.model.num_classes,
-                     style=style, class_names=class_names, use_07_metric=use_07_metric,
-                     dump_path=dump_path, progress=progress)
+    class_names = None
+    if style == "voc":
+        class_names = ("__background__",) + VOC_CLASSES
+    elif voc_dets_dir:
+        # comp4 files are named by class; other datasets name their own.
+        class_names = tuple(getattr(dataset, "classes", ()))
+    if voc_dets_dir and len(class_names or ()) <= 1:
+        # write_submission_artifacts says the same, but only after the
+        # whole pass: refuse before the first batch.
+        raise ValueError("--dump-voc needs foreground class names; the dataset exposes "
+                         f"{tuple(class_names or ())!r} — comp4 det files are per-class-NAME")
+    # A COCO submission carries the original sparse category ids; only the
+    # COCO dataset has the map (other ids are already dense: the identity).
+    label_to_cat = getattr(dataset, "label_to_cat", None) if coco_results_path else None
+    # The guard turns SIGTERM/SIGINT into a drain at a shard boundary;
+    # without shards there is no boundary to drain to.
+    with (PreemptionGuard() if shard_dir else contextlib.nullcontext()) as guard:
+        return pred_eval(
+            eval_step, model, loader, roidb, cfg.data, cfg.model.num_classes, style=style,
+            class_names=class_names, use_07_metric=use_07_metric, dump_path=dump_path,
+            progress=progress,
+            vis_dir=f"{cfg.workdir}/{cfg.name}/vis" if vis_count > 0 else None,
+            vis_count=vis_count, coco_results_path=coco_results_path,
+            label_to_cat=label_to_cat, voc_dets_dir=voc_dets_dir,
+            voc_imageset=submission_imageset(cfg), shard_dir=shard_dir, shard_size=shard_size,
+            resume=resume, shard_retries=shard_retries, guard=guard)
 
 
 def dump_proposals(cfg: Config, out_path: str, state=None, ckpt_dir: Optional[str] = None,
@@ -171,7 +259,8 @@ def dump_proposals(cfg: Config, out_path: str, state=None, ckpt_dir: Optional[st
     model.eval()
     stats = (cfg.data.pixel_mean, cfg.data.pixel_std)
     split = cfg.data.train_split if train_split else cfg.data.val_split
-    _, batches = _eval_loader(cfg, max(cfg.model.test.per_device_batch, 1), dev, split=split)
+    _, _, batches = _eval_loader(cfg, max(cfg.model.test.per_device_batch, 1), dev,
+                                 split=split)
     out: dict[str, dict] = {}
     for batch, recs in batches:
         with torch.inference_mode():
@@ -188,23 +277,34 @@ def dump_proposals(cfg: Config, out_path: str, state=None, ckpt_dir: Optional[st
 
 def main(argv=None) -> dict:
     """Evaluate (``--from-proposals``: on a pkl's boxes) and print the
-    metrics, or with ``--proposals`` dump proposals; returns the metrics
-    dict or the proposal map."""
+    metrics, one ``name = value`` line each, or with ``--proposals`` dump
+    proposals; returns the metrics dict or the proposal map."""
     args = parse_args(argv)
-    cfg = apply_overrides(get_config(args.config), args.set)
+    setup_logging(args.verbose)
+    cfg = config_from_args(args)
     if args.proposals and args.from_proposals:
         raise SystemExit("--proposals (dump) and --from-proposals (score) are exclusive")
     if args.proposals_split and not args.proposals:
         raise SystemExit("--proposals-split only applies with --proposals")
     if args.proposals:
+        if args.resumable or args.shard_dir or args.resume:
+            raise SystemExit("--proposals does not support sharded/resumable mode")
         props = dump_proposals(cfg, args.proposals, ckpt_dir=args.ckpt, step=args.step,
                                train_split=args.proposals_split == "train",
                                device=args.device)
         print(f"wrote {len(props)} images' proposals to {args.proposals}")
         return props
+    if args.resume and not (args.resumable or args.shard_dir):
+        raise SystemExit("--resume requires --resumable (or --shard-dir)")
+    shard_dir = args.shard_dir
+    if args.resumable and not shard_dir:
+        shard_dir = f"{cfg.workdir}/{cfg.name}/eval_shards"
     metrics = run_eval(cfg, ckpt_dir=args.ckpt, step=args.step, dump_path=args.dump,
                        use_07_metric=args.use_07_metric, limit=args.limit, device=args.device,
-                       proposals_path=args.from_proposals)
+                       proposals_path=args.from_proposals, vis_count=args.vis,
+                       coco_results_path=args.dump_coco, voc_dets_dir=args.dump_voc,
+                       shard_dir=shard_dir, shard_size=args.shard_size, resume=args.resume,
+                       shard_retries=args.shard_retries)
     for k, v in sorted(metrics.items()):
         print(f"{k} = {v:.4f}")
     return metrics
@@ -212,8 +312,17 @@ def main(argv=None) -> dict:
 
 def cli(argv=None) -> int:
     """The process entry point: 0 when done (``main`` returns a dict,
-    which ``sys.exit`` would take for a failure)."""
-    main(argv)
+    which ``sys.exit`` would take for a failure); ``RESUMABLE_EXIT_CODE``
+    (75) when a sharded run was preempted after its shard in flight
+    landed, so that a supervisor re-runs it with ``--resume``."""
+    from mx_rcnn_tpu_torch.train.preemption import RESUMABLE_EXIT_CODE, Preempted
+
+    try:
+        main(argv)
+    except Preempted as p:
+        log.warning("eval preempted after shard %d (shards in %s); exiting %d, requeue with "
+                    "--resume", p.step, p.ckpt_dir, RESUMABLE_EXIT_CODE)
+        return RESUMABLE_EXIT_CODE
     return 0
 
 

@@ -29,7 +29,7 @@ import dataclasses
 import logging
 import sys
 
-from mx_rcnn_tpu_torch.config import apply_overrides, available_configs, get_config
+from mx_rcnn_tpu_torch.cli.common import add_config_args, config_from_args, setup_logging
 
 log = logging.getLogger("mx_rcnn_tpu_torch")
 
@@ -38,14 +38,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
         epilog="Not ported: --profile (a traced window of steps).")
-    p.add_argument("--config", default="r50_fpn_coco", choices=available_configs())
-    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                   help="config override, e.g. model.rpn.loss_impl=compact (repeatable)")
+    add_config_args(p)
     p.add_argument("--steps", type=int, default=None,
                    help="train steps (default: the schedule's total_steps)")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     p.add_argument("--seed", type=int, default=None, help="override train.seed")
-    p.add_argument("--workdir", default=None, help="run directory (checkpoints, metrics)")
     p.add_argument("--resume", action="store_true", help="resume from the workdir's checkpoints")
     p.add_argument("--strict-resume", action="store_true",
                    help="fail (instead of warn) when the resumed config drifts from the "
@@ -64,11 +61,10 @@ def main(argv=None) -> dict:
     """Train, then evaluate unless ``--no-eval``; returns ``{"final_step",
     **eval metrics}``."""
     args = parse_args(argv)
-    cfg = apply_overrides(get_config(args.config), args.set)
+    setup_logging(args.verbose)
+    cfg = config_from_args(args)
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=args.seed))
-    if args.workdir:
-        cfg = dataclasses.replace(cfg, workdir=args.workdir)
     from mx_rcnn_tpu_torch.train.loop import train
 
     state = train(cfg, steps=args.steps, device=args.device, workdir=cfg.workdir,

@@ -17,7 +17,8 @@ before its resize.
 
 Training draws batches from :class:`DetectionLoader`, whose schedule
 (epoch shuffle, aspect grouping, flips) is the JAX loader's, bit for bit;
-eval runs one pass in the JAX loader's eval order (:func:`eval_index_specs`).
+its eval form (``train=False``) runs one pass in the JAX loader's eval
+order (:func:`eval_index_specs`), with the same quarantine.
 Both take external proposals (:func:`load_proposals`'s pkl) for Fast
 R-CNN mode: each record's boxes ride the gt boxes' geometry (flip in
 original coordinates, the letterbox scale), best ``num_proposals`` by
@@ -109,10 +110,11 @@ def external_rois(rec: RoiRecord, proposals: dict, num_proposals: int, flip: boo
     return rois, valid
 
 
-def annotation_error(rec: RoiRecord) -> Optional[str]:
+def annotation_error(rec: RoiRecord, num_classes: Optional[int] = None) -> Optional[str]:
     """Why this record's annotations are unusable (malformed box arrays,
-    non-finite or inverted coordinates, class ids below 1, ignore flags of
-    another length), or None if they are fine."""
+    non-finite or inverted coordinates, class ids below 1 or, given
+    ``num_classes``, at or above it, ignore flags of another length), or
+    None if they are fine."""
     boxes = np.asarray(rec.boxes)
     if boxes.ndim != 2 or boxes.shape[1] != 4:
         return f"boxes shape {boxes.shape} is not (n, 4)"
@@ -125,6 +127,8 @@ def annotation_error(rec: RoiRecord) -> Optional[str]:
         return f"gt_classes shape {cls.shape} does not match {len(boxes)} boxes"
     if len(cls) and cls.min() < 1:
         return "class id < 1 (foreground labels are 1-based)"
+    if num_classes is not None and len(cls) and cls.max() >= num_classes:
+        return f"class id {int(cls.max())} >= num_classes {num_classes}"
     if rec.ignore is not None and np.asarray(rec.ignore).shape != (len(boxes),):
         return "ignore flags do not match the box count"
     return None
@@ -295,8 +299,10 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
 
 
 class DetectionLoader:
-    """Infinite train batches on ``device`` in the JAX loader's schedule
-    (the train half of ``mx_rcnn_tpu/data/loader.py::DetectionLoader``).
+    """Batches on ``device`` in the JAX loader's schedule (port of
+    ``mx_rcnn_tpu/data/loader.py::DetectionLoader``): infinite train
+    batches, or with ``train=False`` one eval pass of ``(batch, records)``
+    pairs (:meth:`eval_specs`, :meth:`eval_batch_range`).
 
     Each epoch is shuffled by ``RandomState(seed + epoch)``; under
     ``data.aspect_grouping`` landscape (aspect >= 1) and portrait records
@@ -306,10 +312,11 @@ class DetectionLoader:
     ``data.flip`` off).  The schedule depends on the roidb alone, so
     :meth:`iter_from` skips a resumed run's batches without decoding them.
 
-    A record whose annotations are malformed (:func:`annotation_error`) is
-    quarantined at construction; one whose pixels fail to load (an
-    ``OSError`` or ``ValueError``, after ``io_retries`` retries) is
-    quarantined when first met.  Both stay in the schedule as a blank
+    A record whose annotations are malformed (:func:`annotation_error`,
+    class ids checked against ``num_classes`` when given, as the eval
+    CLI gives it) is quarantined at construction; one whose pixels
+    fail to load (an ``OSError`` or ``ValueError``, after ``io_retries``
+    retries) is quarantined when first met.  Both stay in the schedule as a blank
     image with no valid gt, and each is journaled once to
     ``quarantine_path`` (``data/cache.py``).  Any other error, such as
     PIL missing on the host, propagates.
@@ -321,6 +328,11 @@ class DetectionLoader:
     wrapping whole batches around the group, and the runs shuffled
     together.  On a square canvas every batch has one shape, so the
     schedule is that of ``run_length`` 1 whatever it is.
+
+    Eval (``train=False``): the records in :func:`eval_index_specs` order,
+    never flipped, a short group's last batch padded with its last record;
+    each pair's records are the real ones, which alone are scored.  A
+    quarantined record still counts in the metric, its gt as misses.
 
     Single host only: the JAX loader's ``rank``/``world`` slicing,
     prefetch, the thread pool and the input service are not ported.
@@ -334,8 +346,10 @@ class DetectionLoader:
                  seed: int = 0, quarantine_path: Optional[str] = None,
                  io_retries: int = 2, proposals: Optional[dict] = None,
                  num_proposals: int = 0, with_masks: bool = False,
-                 run_length: int = 1) -> None:
+                 run_length: int = 1, train: bool = True,
+                 num_classes: Optional[int] = None) -> None:
         self.cfg = cfg
+        self.train = train
         self.run_length = max(run_length, 1)
         self.with_masks = with_masks
         self.batch_size = batch_size
@@ -346,7 +360,7 @@ class DetectionLoader:
         self._quarantined: set[str] = set()
         self._bad_annotations: dict[str, str] = {}
         for r in roidb:
-            why = annotation_error(r)
+            why = annotation_error(r, num_classes)
             if why is not None and r.image_id not in self._bad_annotations:
                 self._bad_annotations[r.image_id] = why
                 self._quarantine(r, ValueError(why), reason="annotation")
@@ -357,12 +371,12 @@ class DetectionLoader:
         if proposals is not None:
             require_proposals(self.roidb, proposals)
         ch, cw = cfg.image_size
-        if ch != cw and not cfg.aspect_grouping:
+        if train and ch != cw and not cfg.aspect_grouping:
             raise ValueError("non-square image_size (orientation-bucketed canvases) "
                              "requires data.aspect_grouping=true")
         if not self.roidb:
             raise ValueError("empty roidb")
-        if not cfg.aspect_grouping and len(self.roidb) < batch_size:
+        if train and not cfg.aspect_grouping and len(self.roidb) < batch_size:
             raise ValueError(f"{len(self.roidb)} records make no full batch of {batch_size} "
                              "without data.aspect_grouping")
 
@@ -425,8 +439,25 @@ class DetectionLoader:
         for idxs, flips in self._local_spec_stream(skip_batches):
             yield self._assemble(idxs, flips)
 
-    def __iter__(self) -> Iterator[Batch]:
-        return self.iter_from()
+    def __iter__(self):
+        return self.iter_from() if self.train else self.eval_batch_range()
+
+    # -- eval ----------------------------------------------------------------
+
+    def eval_specs(self) -> list[tuple[list[RoiRecord], list[RoiRecord]]]:
+        """The eval schedule without a pixel decoded: one ``(rows,
+        records)`` pair a batch, the padded batch's records and the real
+        ones (:func:`eval_index_specs`).  Sharded evaluation fingerprints
+        and cuts it (``evalutil/pred_eval.py``)."""
+        return [([self.roidb[j] for j in rows], [self.roidb[j] for j in idxs])
+                for rows, idxs in eval_index_specs(self.roidb, self.cfg, self.batch_size)]
+
+    def eval_batch_range(self, start: int = 0, stop: Optional[int] = None
+                         ) -> Iterator[tuple[Batch, list[RoiRecord]]]:
+        """``(batch, records)`` for eval batches ``start:stop`` of
+        :meth:`eval_specs`; no pixel outside the range is decoded."""
+        for rows, idxs in eval_index_specs(self.roidb, self.cfg, self.batch_size)[start:stop]:
+            yield self._assemble(rows, [False] * len(rows)), [self.roidb[j] for j in idxs]
 
     # -- records -------------------------------------------------------------
 
@@ -506,16 +537,10 @@ def eval_batches(roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int,
                  device, proposals: Optional[dict] = None,
                  num_proposals: int = 0) -> Iterator[tuple[Batch, list[RoiRecord]]]:
     """One pass over ``roidb`` in :func:`eval_index_specs` order:
-    ``(batch, records)``, the batch padded to ``batch_size``.  Whether
-    batches carry ``gt_ignore`` is decided over the whole roidb, as the
-    train loader decides it.  ``proposals``: as :class:`DetectionLoader`'s
-    (checked before the first batch), never flipped.  Eval batches carry
-    no ``gt_masks``: segm scoring reads the gt masks from the roidb."""
-    if proposals is not None:
-        require_proposals(roidb, proposals)
-    bad = [r.image_id for r in roidb if annotation_error(r) is not None]
-    with_ignore = roidb_with_ignore(roidb, bad)
-    for rows, idxs in eval_index_specs(roidb, cfg, batch_size):
-        yield (assemble([roidb[j] for j in rows], cfg, device, with_ignore=with_ignore,
-                        proposals=proposals, num_proposals=num_proposals),
-               [roidb[j] for j in idxs])
+    ``(batch, records)``, the batch padded to ``batch_size``, through
+    :class:`DetectionLoader`'s eval form (its quarantine included).
+    ``proposals``: as :class:`DetectionLoader`'s (checked before the first
+    batch), never flipped.  Eval batches carry no ``gt_masks``: segm
+    scoring reads the gt masks from the roidb."""
+    yield from DetectionLoader(roidb, cfg, batch_size, device, train=False, proposals=proposals,
+                               num_proposals=num_proposals)

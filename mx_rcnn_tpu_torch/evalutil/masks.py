@@ -23,6 +23,10 @@ written here in numpy:
 Nothing here falls back: a missing segmentation rasterizes as its box
 (:func:`gt_record_rles`, as in JAX), never as zeros.
 
+:func:`rle_encode` and :func:`rle_iou` take the native library
+(``mx_rcnn_tpu_torch/native``) when it is built, as JAX's do, and their
+numpy code otherwise; the two give the same bits.
+
 RLE format: column-major (Fortran order, as COCO) run lengths of
 alternating 0/1 runs, starting with 0: {"size": (h, w), "counts":
 uint32[]}.
@@ -188,7 +192,12 @@ def paste_mask(mask: np.ndarray, box: np.ndarray, height: int, width: int,
 
 
 def rle_encode(binary: np.ndarray) -> dict:
-    """(h, w) bool -> COCO-style column-major RLE."""
+    """(h, w) bool -> COCO-style column-major RLE (C++ when built)."""
+    from mx_rcnn_tpu_torch.native.lib import rle_encode_native
+
+    native = rle_encode_native(binary)
+    if native is not None:
+        return native
     h, w = binary.shape
     flat = np.asarray(binary, np.uint8).T.reshape(-1)  # Fortran order
     change = np.flatnonzero(flat[1:] != flat[:-1]) + 1
@@ -222,9 +231,15 @@ def _one_runs(rle: dict) -> tuple[np.ndarray, np.ndarray]:
 
 
 def rle_iou(dts: list[dict], gts: list[dict]) -> np.ndarray:
-    """(n dts) x (m gts) mask IoU, float64, without decoding: for each gt,
-    the count of its ones before a position is read at every det run's
-    ends by one ``searchsorted``, so intersections are exact integers."""
+    """(n dts) x (m gts) mask IoU, float64, without decoding (C++ when
+    built): for each gt, the count of its ones before a position is read
+    at every det run's ends by one ``searchsorted``, so intersections are
+    exact integers."""
+    from mx_rcnn_tpu_torch.native.lib import rle_iou_native
+
+    native = rle_iou_native(dts, gts)
+    if native is not None:
+        return native
     n, m = len(dts), len(gts)
     out = np.zeros((n, m))
     if n == 0 or m == 0:

@@ -33,6 +33,7 @@ Tolerances:
 
 from __future__ import annotations
 
+import importlib
 import dataclasses
 
 import jax
@@ -63,7 +64,8 @@ from mx_rcnn_tpu_torch.data.loader import assemble
 from mx_rcnn_tpu_torch.data.roidb import RoiRecord
 from mx_rcnn_tpu_torch.detection import graph as TG
 from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
-from mx_rcnn_tpu_torch.evalutil import pred_eval as TPE
+# The module (the package exports the function of the same name).
+TPE = importlib.import_module("mx_rcnn_tpu_torch.evalutil.pred_eval")
 from mx_rcnn_tpu_torch.evalutil.postprocess import match_fraction, unletterbox_detections
 from mx_rcnn_tpu_torch.ops.proposals import generate_proposals
 from mx_rcnn_tpu_torch.ops.roi_align import multilevel_roi_align, roi_align

@@ -22,6 +22,7 @@ Tolerances:
 
 from __future__ import annotations
 
+import importlib
 import dataclasses
 
 import jax
@@ -44,7 +45,8 @@ from mx_rcnn_tpu_torch.cli import eval_cli
 from mx_rcnn_tpu_torch.config import apply_overrides, get_config
 from mx_rcnn_tpu_torch.detection import graph as TG
 from mx_rcnn_tpu_torch.evalutil import coco_eval as TCE
-from mx_rcnn_tpu_torch.evalutil import pred_eval as TPE
+# The module (the package exports the function of the same name).
+TPE = importlib.import_module("mx_rcnn_tpu_torch.evalutil.pred_eval")
 from mx_rcnn_tpu_torch.evalutil.detections import load_detections, save_detections
 from mx_rcnn_tpu_torch.evalutil.postprocess import match_fraction
 from mx_rcnn_tpu_torch.evalutil.voc_eval import voc_mean_ap
