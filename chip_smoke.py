@@ -244,6 +244,30 @@ when every phase passed):
    (without matplotlib: refused before the first batch, naming it; with
    it: 2 PNGs).  B1's launches in (b), (d) and (e) count in its entry.
    The rehearsal runs it on phase 5's tiny state at batch 8 on the CPU.
+7i. The training input runtime (:func:`runtime_phase`), ``r50_fpn_coco``
+   at full width (800x1344, batch 2, compact RPN loss, the mixed policy,
+   random weights from the seed), 6 steps through ``train()`` under
+   deterministic algorithms on a COCO directory of real JPEGs written with
+   PIL (16 landscape 480x640, 8 portrait 640x480, one file missing, one
+   truncated; a quarter of that in the rehearsal), five ways: (a)
+   synchronous (``host_depth=0``, no pool, no read-ahead); (b) the default
+   in-process path (the pool, ``_Prefetched``, ``device_prefetch``'s
+   pinned staging and copy stream); (c) ``data.num_workers=3`` with the
+   shm ring and a fresh ``data.cache_dir``; (d) (c) with the cache warm and
+   ``MX_RCNN_CHAOS_DATA_SUICIDE`` on batch 2; (e)
+   ``MX_RCNN_CHAOS_DATA_WEDGE`` on batch 1 under
+   ``MX_RCNN_DATA_WATCHDOG_S=4``, one cache blob's bytes flipped, and
+   ``MX_RCNN_CHAOS_SHM_CORRUPT`` on batch 3.  Every run's final parameters
+   and momentum bitwise (a)'s; each journal holds the missing and the
+   truncated record once each, (e)'s one ``cache_checksum`` and one
+   ``shm_checksum`` record besides; B1 and B2 in every step; after each
+   ``train()`` no ``host-prefetch``/``loader-prefetch`` thread and no
+   child process alive; every worker's hello without CUDA; the shm ring
+   carried bytes in (c)-(e).  Seconds a step, ``data_stall_ms`` (phase 5's
+   beside (a)'s and (b)'s), peak memory and (e)'s reap seconds printed with
+   the card's line.  Then ``run_eval`` on the set at batch 8 with
+   ``data.num_workers=2`` and 0: the dumps byte-identical.  B1's and B2's
+   launches count as the ``runtime`` paths.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -270,6 +294,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib
+import itertools
 import json
 import os
 import subprocess
@@ -1053,8 +1078,8 @@ def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 
     log(f"[{label}] {cfg.name}{' (rehearsal: cut)' if rehearsal else ''} batch "
         f"{cfg.train.per_device_batch}, {h}x{w}, {steps} steps in {time.perf_counter() - t0:.2f} "
         f"s (build and the synthetic set's rendering included); after the first: {wall:.4f} s "
-        f"a step with the batch assembly, of which data_stall_ms {stall:.2f} (time in "
-        f"next(loader)); peak memory {peak:.2f} GiB ({peak - live:.2f} above the {live:.2f} "
+        f"a step with the batch assembly, of which data_stall_ms {stall:.2f} (the wait "
+        f"past the prefetch buffer); peak memory {peak:.2f} GiB ({peak - live:.2f} above the {live:.2f} "
         f"GiB live before the run); "
         f"loss {steps_seen[0][1]['loss']:.4f} -> {steps_seen[-1][1]['loss']:.4f}; "
         f"frozen {n_frozen} parameters and all buffers unchanged, {moved} of {n_train} "
@@ -1242,14 +1267,14 @@ def roidb_phase(dev, rehearsal: bool, seed: int, steps: int = 8) -> dict:
         def drive(name, log_line, loader, **kw):
             """One train() call: its lines, batches and per-step launches."""
             out = {"lines": [], "specs": [], "launches": []}
-            assemble = loader._assemble
+            assemble = loader._assemble_rows
 
-            def watched(idxs, flips):
+            def watched(spec):
                 out["launches"].append({k: fn.launches for k, fn in counters.items()})
                 for fn in counters.values():
                     fn.launches = 0
-                out["specs"].append(([int(j) for j in idxs], [bool(f) for f in flips]))
-                return assemble(idxs, flips)
+                out["specs"].append(([int(j) for j in spec[0]], [bool(f) for f in spec[1]]))
+                return assemble(spec)
 
             def on_line(line):
                 out["lines"].append((time.perf_counter(), json.loads(line)))
@@ -1258,15 +1283,18 @@ def roidb_phase(dev, rehearsal: bool, seed: int, steps: int = 8) -> dict:
 
             for fn in counters.values():
                 fn.launches = 0
-            loader._assemble = watched
+            loader._assemble_rows = watched
             try:
+                # The synchronous path (host_depth=0, a loader without pool
+                # or read-ahead): each batch is assembled just before its
+                # step, so the launches between two assemblies are a step's.
                 out["state"] = loop.train(cfg, steps=steps, device=dev, log=on_line,
                                           workdir=os.path.join(work, name), pretrained=pth,
-                                          loader=loader, **kw)
+                                          loader=loader, host_depth=0, **kw)
             except Preempted as e:
                 out["preempted"] = (e, time.perf_counter())
             finally:
-                loader._assemble = assemble
+                loader._assemble_rows = assemble
                 out["launches"] = out["launches"][1:] + [
                     {k: fn.launches for k, fn in counters.items()}]
             return out
@@ -1274,7 +1302,8 @@ def roidb_phase(dev, rehearsal: bool, seed: int, steps: int = 8) -> dict:
         def loader_for(name):
             return DetectionLoader(roidb, cfg.data, batch, dev, seed=cfg.train.seed,
                                    quarantine_path=os.path.join(work, name, cfg.name,
-                                                                "quarantine.jsonl"))
+                                                                "quarantine.jsonl"),
+                                   prefetch=False, num_workers=0)
 
         def preempt_at_2(m):
             if m["step"] == 2:
@@ -2761,17 +2790,17 @@ def assembled_specs(seen: list):
     loader assembles it."""
     from mx_rcnn_tpu_torch.data.loader import DetectionLoader
 
-    original = DetectionLoader._assemble
+    original = DetectionLoader._assemble_rows
 
-    def spy(self, idxs, flips):
-        seen.append(([int(j) for j in idxs], [bool(f) for f in flips]))
-        return original(self, idxs, flips)
+    def spy(self, spec):
+        seen.append(([int(j) for j in spec[0]], [bool(f) for f in spec[1]]))
+        return original(self, spec)
 
-    DetectionLoader._assemble = spy
+    DetectionLoader._assemble_rows = spy
     try:
         yield seen
     finally:
-        DetectionLoader._assemble = original
+        DetectionLoader._assemble_rows = original
 
 
 def peak_step(dev, cfg, variables, batch):
@@ -2961,7 +2990,7 @@ def forms_steps_per_call(dev, rehearsal: bool, seed: int, counters: dict,
     base = forms_cfg(rehearsal, seed)
     roidb = filter_roidb(build_dataset(base.data, train=True).roidb())
     loader = DetectionLoader(roidb, base.data, base.train.per_device_batch, dev,
-                             seed=base.train.seed, run_length=2)
+                             seed=base.train.seed, run_length=2, prefetch=False, num_workers=0)
     want = [([int(j) for j in idx], [bool(f) for f in fl])
             for idx, fl in itertools.islice(loader._batch_index_specs(), 4)]
     for k in (1, 2):
@@ -2972,7 +3001,7 @@ def forms_steps_per_call(dev, rehearsal: bool, seed: int, counters: dict,
                 assembled_specs(seen):
             t0 = time.perf_counter()
             state = train(cfg, steps=4, device=dev, variables=variables, log=lambda line: None,
-                          loader=loader)
+                          loader=loader, host_depth=0)
             walls[k] = time.perf_counter() - t0
         ends[k] = {n: v.clone() for n, v in state.model.state_dict().items()}
         specs[k] = seen
@@ -4178,6 +4207,338 @@ def evalx_phase(dev, rehearsal: bool, seed: int, trained: dict, phase6: dict) ->
 # the paths that launch it.  (``roi_align_f32`` and ``roi_align_bwd_f32``
 # are checked as well, but the paths run bf16, so they are no entries of
 # their own.)
+RUNTIME_CONFIG = "r50_fpn_coco"
+RUNTIME_STEPS = 6
+# The batches phase 7i's faults land on: run (e) wedges a worker on batch 1
+# and corrupts batch 3's shm slot (reassigned: assembled twice), run (d)
+# kills a worker on batch 2 (before it assembles it).  The bad records sit
+# in batches a fault never reassigns, so each is journaled once.
+RUNTIME_CLEAN_BATCHES = (0, 4, 5)
+
+
+def runtime_records(rehearsal: bool, seed: int):
+    """Sixteen landscape and eight portrait records rendered like the
+    synthetic set's classes 1-4 (480x640 and 640x480; a quarter of that in
+    the rehearsal), and two more landscape ones, ``missing`` and
+    ``truncated``: ``[(record, tag)]`` in roidb order, pixels in
+    ``image_array``."""
+    import dataclasses
+
+    from mx_rcnn_tpu_torch.data.datasets import SyntheticDataset
+
+    hw = {"land": (120, 160), "port": (160, 120)} if rehearsal else \
+        {"land": (480, 640), "port": (640, 480)}
+    out = []
+    for tag, n in (("land", 18), ("port", 8)):
+        ds = SyntheticDataset(num_images=n, image_hw=hw[tag], num_classes=5,
+                              seed=seed + 7 + (tag == "port"))
+        out += [(dataclasses.replace(ds.record(i), image_id=f"{tag}{i}"), "ok")
+                for i in range(n)]
+    out[16] = (out[16][0], "missing")
+    out[17] = (out[17][0], "truncated")
+    return out
+
+
+def write_runtime_set(root: str, cfg, rehearsal: bool, seed: int, batch: int) -> str:
+    """The records of :func:`runtime_records` as a COCO directory under
+    ``root`` (JPEGs written with PIL at quality 90, split ``runtime``), the
+    missing record's file absent and the truncated one's cut to half its
+    bytes; the bad records moved to rows that the schedule's batches in
+    ``RUNTIME_CLEAN_BATCHES`` draw (every landscape record has one aspect,
+    so the move leaves the schedule as it was).  Returns the split and the
+    bad records' file names."""
+    import itertools
+
+    from PIL import Image
+
+    from mx_rcnn_tpu_torch.data.loader import DetectionLoader
+
+    recs = runtime_records(rehearsal, seed)
+    probe = DetectionLoader([r for r, _ in recs], cfg.data, batch, "cpu", seed=cfg.train.seed,
+                            prefetch=False, num_workers=0, service_workers=0)
+    specs = list(itertools.islice(probe._batch_index_specs(), RUNTIME_STEPS))
+    rows = [int(j) for b in RUNTIME_CLEAN_BATCHES for j in specs[b][0]
+            if recs[int(j)][0].aspect >= 1]
+    rows = list(dict.fromkeys(rows))
+    if len(rows) < 2:
+        raise AssertionError(f"runtime: batches {RUNTIME_CLEAN_BATCHES} draw too few landscape "
+                             f"rows ({rows})")
+    for bad, row in zip((16, 17), rows):
+        recs[bad], recs[row] = recs[row], recs[bad]
+    split = "runtime"
+    os.makedirs(os.path.join(root, split), exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    images, anns = [], []
+    for n, (rec, tag) in enumerate(recs):
+        name = f"{rec.image_id}.jpg"
+        path = os.path.join(root, split, name)
+        if tag != "missing":
+            Image.fromarray(rec.image_array).save(path, quality=90)
+        if tag == "truncated":
+            with open(path, "r+b") as f:
+                f.truncate(os.path.getsize(path) // 2)
+        images.append({"id": n + 1, "file_name": name, "height": rec.height,
+                       "width": rec.width})
+        for box, cls in zip(rec.boxes.tolist(), rec.gt_classes.tolist()):
+            x1, y1, x2, y2 = box
+            anns.append({"id": len(anns) + 1, "image_id": n + 1, "category_id": int(cls),
+                         "bbox": [x1, y1, x2 - x1 + 1, y2 - y1 + 1], "iscrowd": 0,
+                         "area": (x2 - x1 + 1) * (y2 - y1 + 1)})
+    cats = [{"id": c, "name": f"shape{c}"} for c in range(1, 5)]
+    with open(os.path.join(root, "annotations", f"instances_{split}.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+    return split, {f"{rec.image_id}.jpg" for rec, tag in recs if tag != "ok"}
+
+
+def live_runtime() -> dict:
+    """The input pipeline's threads and this process's children alive."""
+    import multiprocessing as mp
+
+    return {"threads": sorted(t.name for t in threading.enumerate()
+                              if t.name in ("host-prefetch", "loader-prefetch")),
+            "children": sorted(p.pid for p in mp.active_children())}
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """``os.environ`` with ``values`` set, restored after."""
+    prev = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def runtime_phase(dev, rehearsal: bool, seed: int, phase5: dict) -> dict:
+    """Phase 7i: the training input runtime.  ``r50_fpn_coco`` at full
+    width (800x1344, batch 2, compact RPN loss, the mixed policy, random
+    weights from the seed) trains 6 steps through ``train()`` under
+    deterministic algorithms on a COCO directory of real JPEGs (one file
+    missing, one truncated), five ways: (a) synchronous (``host_depth=0``,
+    a loader without pool or read-ahead); (b) the default in-process path
+    (the pool, ``_Prefetched``, ``device_prefetch``'s pinned staging and
+    copy stream); (c) ``data.num_workers=3`` with the shm ring and a fresh
+    ``data.cache_dir`` (every read a miss); (d) (c) with the cache warm and
+    a worker SIGKILLing itself on batch 2; (e) a worker wedged on batch 1
+    under a 4 s watchdog, one cache blob's bytes flipped before the run,
+    and batch 3's shm slot corrupted.  Every run's final parameters and
+    momentum bitwise (a)'s; each run's journal holds the missing and the
+    truncated record once each, (e)'s one ``cache_checksum`` and one
+    ``shm_checksum`` record besides; B1 and B2 in every step; no
+    ``host-prefetch``/``loader-prefetch`` thread and no child process
+    alive after each ``train()``; every worker's hello without CUDA.
+    Then ``run_eval`` on the set at batch 8 with ``data.num_workers=2``:
+    its dump byte-identical to the ``num_workers=0`` dump."""
+    import shutil
+
+    from mx_rcnn_tpu_torch import obs
+    from mx_rcnn_tpu_torch.cli.eval_cli import run_eval
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.data.cache import TensorCache, quarantine_read
+    from mx_rcnn_tpu_torch.data.datasets import build_dataset
+    from mx_rcnn_tpu_torch.data.loader import DetectionLoader
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
+    )
+    from mx_rcnn_tpu_torch.train.loop import build_all, train
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    t_phase = time.perf_counter()
+    counters = {"roi_align": multilevel_roi_align_cuda,
+                "roi_align_bwd": multilevel_roi_align_bwd_cuda}
+    batch = 2
+    work = os.path.join(ROOT, "runs", f"chip_smoke_runtime_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    overrides = ["model.rpn.loss_impl=compact", f"train.seed={seed}", "data.flip=true",
+                 "train.log_every=1", f"train.per_device_batch={batch}",
+                 "model.test.per_device_batch=8", "data.dataset=coco", f"data.root={work}",
+                 "data.train_split=runtime", "data.val_split=runtime"]
+    if rehearsal:
+        # The rehearsal's sources (120x160) outsize its canvas, which sizes
+        # the shm slots: give the slots room.
+        overrides += ["model.backbone.freeze_stages=2", "data.image_size=96,128",
+                      "data.shm_slot_mb=1"]
+    base = apply_overrides(get_config("tiny_synthetic" if rehearsal else RUNTIME_CONFIG),
+                           overrides)
+    try:
+        _, bad_files = write_runtime_set(work, base, rehearsal, seed, batch)
+        roidb = build_dataset(base.data, train=True).roidb()
+        bad_ids = sorted(r.image_id for r in roidb
+                         if os.path.basename(r.image_path) in bad_files)
+        variables = init_variables(base.model, torch.Generator().manual_seed(seed))
+        specs = list(itertools.islice(
+            DetectionLoader(roidb, base.data, batch, "cpu", seed=seed, prefetch=False,
+                            num_workers=0, service_workers=0)._batch_index_specs(),
+            RUNTIME_STEPS))
+        cache_dir = os.path.join(work, "tensor_cache")
+        service = [f"data.num_workers=3", f"data.cache_dir={cache_dir}"]
+        runs = {"a": ([], dict(host_depth=0), dict(prefetch=False, num_workers=0), {}),
+                "b": ([], {}, {}, {}),
+                "c": (service, {}, {}, {}),
+                "d": (service, {}, {}, {"MX_RCNN_CHAOS_DATA_SUICIDE":
+                                        f"2:{os.path.join(work, 'suicide.sentinel')}"}),
+                "e": (service, {}, {}, {"MX_RCNN_CHAOS_DATA_WEDGE":
+                                        f"1:{os.path.join(work, 'wedge.sentinel')}",
+                                        "MX_RCNN_DATA_WATCHDOG_S": "4",
+                                        "MX_RCNN_CHAOS_SHM_CORRUPT": "3"})}
+        results, problems, nondet = {}, [], []
+        launches = {k: 0 for k in counters}
+        for name, (extra, train_kw, loader_kw, env) in runs.items():
+            cfg = apply_overrides(base, extra)
+            if name == "e":
+                # Flip the bytes of one blob run (c) wrote: the first good
+                # record of the clean batches, as the schedule draws it.
+                j, flip = next((int(j), f) for b in (*RUNTIME_CLEAN_BATCHES, 1, 2, 3)
+                               for j, f in zip(*specs[b])
+                               if roidb[int(j)].image_id not in bad_ids)
+                cache = TensorCache(cache_dir)
+                blob = cache._path(cache.key(roidb[j], flip))
+                with open(blob, "r+b") as f:
+                    f.seek(-64, os.SEEK_END)
+                    tail = f.read(64)
+                    f.seek(-64, os.SEEK_END)
+                    f.write(bytes(b ^ 0xFF for b in tail))
+            qpath = os.path.join(work, name, "quarantine.jsonl")
+            loader = DetectionLoader(roidb, cfg.data, batch, dev, seed=seed,
+                                     quarantine_path=qpath, **loader_kw)
+            lines, per_step = [], []
+
+            def on_line(line, lines=lines, per_step=per_step, name=name):
+                lines.append((time.perf_counter(), json.loads(line)))
+                per_step.append({k: fn.launches for k, fn in counters.items()})
+                for fn in counters.values():
+                    fn.launches = 0
+
+            before = live_runtime()
+            t_events = time.monotonic_ns()  # the flight ring is bounded: select by time
+            shm = {k: obs.counter(k).value(service="input-service")
+                   for k in ("data_shm_bytes_total", "data_shm_overflows_total")}
+            for fn in counters.values():
+                fn.launches = 0
+            live = 0.0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+                live = torch.cuda.memory_allocated(dev) / 2**30
+            t0 = time.perf_counter()
+            with environ(**env), deterministic_algorithms(nondet):
+                state = train(cfg, steps=RUNTIME_STEPS, device=dev, variables=variables,
+                              log=on_line, loader=loader, **train_kw)
+            wall = time.perf_counter() - t0
+            after = live_runtime()
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30 - live if dev.type == "cuda" \
+                else float("nan")
+            events = [e for e in obs.flight().entries() if e["ts_mono_ns"] > t_events]
+            reap = [e["payload"]["heartbeat_age_s"] for e in events
+                    if e["kind"] == "worker_wedged"]
+            shm = {k: obs.counter(k).value(service="input-service") - v for k, v in shm.items()}
+            rows = quarantine_read(qpath)
+            io = sorted(r["image_id"] for r in rows if r.get("reason") == "io")
+            kinds = sorted(r["reason"] for r in rows if r.get("reason") != "io")
+            hellos = [h for run in loader.service_runs for h in run["hellos"]]
+            deaths = sum(run["deaths"] for run in loader.service_runs)
+            times = [t for t, _ in lines]
+            step_s = (times[-1] - times[0]) / (len(times) - 1)
+            stall = [m["data_stall_ms"] for _, m in lines[1:]]
+            results[name] = {
+                "state": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+                "momentum": [t.cpu() for t in state.optimizer.trace],
+                "s_per_step": step_s, "data_stall_ms": float(np.mean(stall)), "peak_gib": peak,
+                "reap_s": reap, "wall": wall}
+            for k in counters:
+                launches[k] += sum(c[k] for c in per_step)
+            want_kinds = ["cache_checksum", "shm_checksum"] if name == "e" else []
+            if len(lines) != RUNTIME_STEPS or not all(
+                    finite_line(m) and m["nonfinite"] == 0.0 for _, m in lines):
+                problems.append(f"({name}): {len(lines)} steps, or a non-finite metric")
+            if io != bad_ids or kinds != want_kinds:
+                problems.append(f"({name}): journal io {io} (want {bad_ids}), others {kinds} "
+                                f"(want {want_kinds})")
+            if not rehearsal and any(v < 1 for c in per_step for v in c.values()):
+                problems.append(f"({name}): B1 or B2 not launched in a step: {per_step}")
+            if after["threads"] or set(after["children"]) - set(before["children"]):
+                problems.append(f"({name}): alive after train(): {after}")
+            if name in "cde" and (len(hellos) < 3 or any(h["cuda"] for h in hellos)):
+                problems.append(f"({name}): worker hellos {hellos}")
+            if name == "d" and deaths < 1:
+                problems.append("(d): no worker died")
+            if name == "e" and not reap:
+                problems.append("(e): the wedged worker was not reaped")
+            if name in "cde" and not shm["data_shm_bytes_total"]:
+                problems.append(f"({name}): nothing went through the shm ring ({shm})")
+            log(f"[runtime:{name}] {cfg.name}{' (rehearsal: cut)' if rehearsal else ''} batch "
+                f"{batch}, {RUNTIME_STEPS} steps in {wall:.2f} s (build included): "
+                f"{step_s:.4f} s a step after the first, data_stall_ms {np.mean(stall):.2f} "
+                f"({[round(s, 2) for s in stall]}), peak memory {peak:.2f} GiB above the "
+                f"{live:.2f} GiB live before the run; journal io {io} "
+                f"others {kinds}; workers {len(hellos)} (cuda in a hello: "
+                f"{any(h['cuda'] for h in hellos)}), deaths {deaths}, shm {shm}, wedge reaped after "
+                f"{reap} s; launches a step {per_step}; {card_line() if dev.type == 'cuda' else 'cpu'}")
+            del state
+            release(dev)
+        ref = results["a"]
+        for name, r in results.items():
+            same = all(torch.equal(r["state"][k], ref["state"][k]) for k in ref["state"]) and \
+                all(torch.equal(x, y) for x, y in zip(r["momentum"], ref["momentum"],
+                                                      strict=True))
+            if not same:
+                problems.append(f"({name}): final parameters differ from (a)'s "
+                                f"(ops without a deterministic algorithm: {nondet})")
+        log(f"[runtime] data_stall_ms: phase 5 {phase5['data_stall_ms']:.2f}, (a) "
+            f"{results['a']['data_stall_ms']:.2f}, (b) {results['b']['data_stall_ms']:.2f}; "
+            f"s a step: phase 5 {phase5['s_per_step']:.4f}, " + ", ".join(
+                f"({k}) {r['s_per_step']:.4f}" for k, r in results.items()) +
+            f"; all five bitwise (a): {not any('differ' in p for p in problems)}")
+
+        # The eval: the set at batch 8, through the input service and without,
+        # classes 1-4 favoured so that the dumps hold detections.
+        favoured = dict(variables)
+        favoured["box_head.cls_score.bias"] = variables["box_head.cls_score.bias"].clone()
+        favoured["box_head.cls_score.bias"][1:5] = 4.0
+        state = build_all(base, dev, favoured)[2]
+        dumps, eval_b1 = {}, 0
+        for workers in (0, 2):
+            cfg = apply_overrides(base, [f"data.num_workers={workers}"])
+            path = os.path.join(work, f"dump_w{workers}.json")
+            before = live_runtime()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            metrics = run_eval(cfg, state=state, dump_path=path, device=dev)
+            eval_s = time.perf_counter() - t0
+            eval_b1 += multilevel_roi_align_cuda.launches
+            with open(path, "rb") as f:
+                dumps[workers] = f.read()
+            if not all(np.isfinite(v) for v in metrics.values()):
+                problems.append(f"eval num_workers={workers}: non-finite metrics")
+            if set(live_runtime()["children"]) - set(before["children"]):
+                problems.append(f"eval num_workers={workers}: a worker outlived run_eval")
+            n_dets = sum(len(d.get("boxes", [])) for d in json.loads(dumps[workers]).values())
+            log(f"[runtime:eval] num_workers={workers}: {len(roidb)} images in {eval_s:.2f} s "
+                f"(model build included), B1 launches {multilevel_roi_align_cuda.launches}, "
+                f"dump {len(dumps[workers])} bytes, {n_dets} detections")
+            if not n_dets:
+                problems.append(f"eval num_workers={workers}: the dump holds no detection")
+        if dumps[0] != dumps[2]:
+            problems.append("eval: the num_workers=2 dump differs from the num_workers=0 dump")
+        if not rehearsal and eval_b1 < 1:
+            problems.append("eval: B1 never launched")
+        log(f"[runtime] phase 7i {time.perf_counter() - t_phase:.2f} s; dumps byte-identical "
+            f"{dumps[0] == dumps[2]}; ops without a deterministic algorithm: {nondet}")
+        if problems:
+            raise AssertionError(f"runtime: {problems}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"paths": {"runtime": {"launches": launches},
+                      "runtime_eval": {"launches": {"roi_align": eval_b1}}}}
+
+
 FAST_PATHS = {"roi_align": ("fast_alt", "fast_ingraph", "fast_pipe"),
               "roi_align_bwd": ("fast_alt", "fast_ingraph"),
               "fused_middle": ("fast_alt", "fast_ingraph"), "nms": ("fast_pipe",)}
@@ -4188,15 +4549,18 @@ LADDER_PATHS = {"roi_align": ("ladder",), "fused_middle": ("ladder",),
                 "nms": ("ladder_proposals",)}
 FORMS_PATHS = ("forms_accum", "forms")
 EVALX_PATHS = ("evalx_sharded", "evalx_mask", "evalx_demo")
+RUNTIME_PATHS = {"roi_align": ("runtime", "runtime_eval"), "roi_align_bwd": ("runtime",)}
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
                   ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval",
                    *FAST_PATHS["roi_align"], *MASK_PATHS["roi_align"],
-                   *LADDER_PATHS["roi_align"], *FORMS_PATHS, *EVALX_PATHS)),
+                   *LADDER_PATHS["roi_align"], *FORMS_PATHS, *EVALX_PATHS,
+                   *RUNTIME_PATHS["roi_align"])),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                       "mx_rcnn_tpu/ops/pallas/roi_align.py:623",
                       ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"],
-                       *MASK_PATHS["roi_align_bwd"], *FORMS_PATHS)),
+                       *MASK_PATHS["roi_align_bwd"], *FORMS_PATHS,
+                       *RUNTIME_PATHS["roi_align_bwd"])),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
                      "mx_rcnn_tpu/ops/pallas/middle.py:145",
                      ("full", "c4_full", *FAST_PATHS["fused_middle"],
@@ -4399,6 +4763,7 @@ def main() -> int:
     paths.update(forms["paths"])
     evalx = evalx_phase(dev, args.cpu_rehearsal, args.seed, paths["train"], paths["eval"])
     paths.update(evalx["paths"])
+    paths.update(runtime_phase(dev, args.cpu_rehearsal, args.seed, paths["train"])["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)

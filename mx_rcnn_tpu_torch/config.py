@@ -188,7 +188,28 @@ class DataConfig:
     # VOC: promote "difficult" objects to real gt instead of ignore regions.
     use_diff: bool = False
     # Parsed-roidb pickle cache (data/datasets.py::_CachedRoidb); "" = off.
+    # Also roots the tensor cache (data/cache.py::TensorCache): each
+    # record's decoded, flipped uint8 pixels at source size, checksummed,
+    # under <cache_dir>/tensors/<fingerprint>/.  (JAX's
+    # ``normalize_on_host`` is not ported: the port takes uint8 pixels only
+    # and normalizes in the graph.)
     cache_dir: str = ""
+    # Process input service (data/service.py): spawned decode workers that
+    # may die or wedge without changing a bit of the batch stream.  0 keeps
+    # the in-process thread pool.
+    num_workers: int = 0
+    # Respawns a worker slot gets after a death or wedge; when every slot
+    # has spent its budget the service falls back to in-process assembly.
+    worker_respawns: int = 2
+    # Ship the workers' host batches through a CRC-stamped shared-memory
+    # ring (data/shm_ring.py) instead of pickling them; num_workers > 0.
+    shm_transport: bool = True
+    # Ring slots a worker (one host batch a slot).
+    shm_slots: int = 4
+    # Slot size in MiB; 0 sizes it from the canvas (data/loader.py::
+    # DetectionLoader._shm_slot_bytes).  A batch that overflows its slot
+    # rides the pickle path for that batch.
+    shm_slot_mb: int = 0
 
 
 @dataclass(frozen=True)

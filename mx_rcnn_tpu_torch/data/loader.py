@@ -8,12 +8,28 @@ passes ``max_side``, clamped to the canvas), its boxes scaled by the same
 factor, and its gt padded to ``data.max_gt_boxes`` with ``gt_valid`` (and
 ``gt_ignore`` where the roidb has crowd or difficult regions anywhere).
 Pixels stay uint8; the graph normalizes them
-(``detection/graph.py::prep_images``).  The resize is
-``data/transforms.py``'s torch bilinear on the batch's device, rounded
-back to uint8; an image already at its letterbox size is not resampled.
-A flipped record's pixels flip on the host before the upload and its
-boxes in original coordinates before the scale, as the JAX loader flips
-before its resize.
+(``detection/graph.py::prep_images``).
+
+**The resize stays on the card; everything before it leaves the
+consumer's thread.**  Assembly is two halves, ``assemble(...) ==
+device_half(host_half(...))`` bit for bit:
+
+* :func:`host_half`, numpy only and picklable: decode, flip, the gt,
+  mask and ``ext_rois`` arrays, and the batch's source pixels packed
+  into one flat uint8 array beside their ``(B, 2)`` heights and widths
+  (:class:`HostBatch`, ndarray-or-None fields, so the shm ring takes it).
+  The thread pool, the input service's workers and the tensor cache stop
+  here.
+* :func:`device_half`: upload, then each image resized with
+  ``data/transforms.py``'s torch bilinear on the device, rounded back to
+  uint8 and pasted into the canvas (an image already at its letterbox
+  size is not resampled), giving the :class:`~.batch.Batch`.  Resizing
+  on the host in torch instead would change the bits: CPU and CUDA
+  bilinear are not bitwise equal, and the port's parity with the JAX
+  package rests on the stated resize tolerance.
+
+A flipped record's pixels flip on the host and its boxes in original
+coordinates before the scale, as the JAX loader flips before its resize.
 
 Training draws batches from :class:`DetectionLoader`, whose schedule
 (epoch shuffle, aspect grouping, flips) is the JAX loader's, bit for bit;
@@ -26,29 +42,41 @@ score, clipped to the resized image and zero-padded with ``ext_valid``.
 With ``with_masks`` each gt slot also carries its instance mask,
 rasterized on the host over the box at ``GT_MASK_SIZE`` square
 (:func:`rasterize_mask`, numpy: the card's machine has no cv2), mirrored
-with a flipped record.  Not ported: the prefetch thread, the thread pool,
-the input service, the tensor cache and the chaos hooks.
+with a flipped record.
+
+The host half runs, as in JAX, in one of three places: in the consumer's
+thread; in a thread pool of ``num_workers`` (PIL's decode releases the
+GIL), read ahead by a ``loader-prefetch`` thread (:class:`_Prefetched`);
+or in the process input service (``data.num_workers`` > 0,
+``data/service.py``), whose spawned workers rebuild the loader on the
+CPU and never touch the card.  Chaos hooks: ``MX_RCNN_CHAOS_BAD_IMAGES``
+makes the named records' loads raise (quarantine and blank), and
+``MX_RCNN_CHAOS_NAN_STEPS`` refuses the port's batches as JAX refuses a
+uint8 batch: the port's pixels are uint8 only.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
 import pickle
+import queue
+import threading
 import time
-from typing import Callable, Iterator, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from mx_rcnn_tpu_torch.config import DataConfig
 from mx_rcnn_tpu_torch.data.batch import Batch
-from mx_rcnn_tpu_torch.data.cache import quarantine_append
+from mx_rcnn_tpu_torch.data.cache import TensorCache, quarantine_append
 from mx_rcnn_tpu_torch.data.roidb import RoiRecord
 from mx_rcnn_tpu_torch.data.transforms import (
     flip_boxes,
-    hflip,
     oriented_canvas,
     resize_linear,
     resize_scale,
@@ -56,6 +84,14 @@ from mx_rcnn_tpu_torch.data.transforms import (
 from mx_rcnn_tpu_torch.evalutil.masks import fill_polygons, resize_bilinear, rle_decode
 
 log = logging.getLogger("mx_rcnn_tpu_torch")
+
+# Chaos hook: comma-separated global batch indices whose batches would be
+# poisoned with NaN (training only).  The port's pixels are uint8, so the
+# loader refuses at that index, as the JAX loader refuses a uint8 batch.
+CHAOS_NAN_ENV = "MX_RCNN_CHAOS_NAN_STEPS"
+# Chaos hook: comma-separated image ids whose pixel load raises (as a
+# corrupt file would): retries, quarantine and a blank, training and eval.
+CHAOS_BAD_IMAGES_ENV = "MX_RCNN_CHAOS_BAD_IMAGES"
 
 # Box-relative resolution of the gt instance masks; the graph crops them
 # to the mask head's grid a sampled roi (detection/graph.py::crop_gt_masks).
@@ -200,40 +236,51 @@ def record_scale(cfg: DataConfig, rec: RoiRecord) -> float:
                ch / rec.height, cw / rec.width)
 
 
-def letterbox_uint8(image: torch.Tensor, canvas_hw: tuple[int, int], nh: int,
-                    nw: int) -> torch.Tensor:
-    """(H, W, 3) uint8 -> resized to (nh, nw), pasted top-left into a
-    zero uint8 canvas."""
-    canvas = torch.zeros((*canvas_hw, 3), dtype=torch.uint8, device=image.device)
-    if image.shape[:2] == (nh, nw):
-        canvas[:nh, :nw] = image
-    else:
-        resized = resize_linear(image, nh, nw)
-        canvas[:nh, :nw] = torch.clamp(torch.round(resized), 0, 255).to(torch.uint8)
-    return canvas
+class HostBatch(NamedTuple):
+    """The host half of a batch: numpy arrays only (picklable, and what
+    ``data/shm_ring.py`` encodes).  ``pixels`` holds each image's decoded
+    (and flipped) uint8 RGB at source size, flattened and concatenated in
+    batch order; ``src_hw`` their (h, w); ``image_hw`` the letterboxed
+    (nh, nw) each is resized to; ``canvas_hw`` the batch's canvas.  The
+    rest are :class:`~.batch.Batch`'s fields."""
+
+    pixels: np.ndarray                    # (sum h*w*3,) uint8
+    src_hw: np.ndarray                    # (B, 2) int32
+    image_hw: np.ndarray                  # (B, 2) float32
+    canvas_hw: np.ndarray                 # (2,) int32
+    gt_boxes: np.ndarray                  # (B, G, 4) float32
+    gt_classes: np.ndarray                # (B, G) int32
+    gt_valid: np.ndarray                  # (B, G) bool
+    gt_ignore: Optional[np.ndarray] = None
+    ext_rois: Optional[np.ndarray] = None
+    ext_valid: Optional[np.ndarray] = None
+    gt_masks: Optional[np.ndarray] = None
 
 
-def _pixels_ok(rec: RoiRecord) -> tuple[np.ndarray, bool]:
-    return load_image(rec), True
+def plain_pixels(rec: RoiRecord, flip: bool) -> tuple[np.ndarray, bool]:
+    """``(pixels, ok)``: the record's pixels (:func:`load_image`), flipped
+    when ``flip``; no retry, no quarantine."""
+    pixels = load_image(rec)
+    return (pixels[:, ::-1].copy() if flip else pixels), True
 
 
-def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
-             flips: Optional[Sequence[bool]] = None, with_ignore: Optional[bool] = None,
-             load: Callable[[RoiRecord], tuple[np.ndarray, bool]] = _pixels_ok,
-             proposals: Optional[dict] = None, num_proposals: int = 0,
-             with_masks: bool = False) -> Batch:
-    """One batch on ``device`` from uint8 records of one orientation.
+def host_half(records: Sequence[RoiRecord], cfg: DataConfig,
+              flips: Optional[Sequence[bool]] = None, with_ignore: Optional[bool] = None,
+              pixels: Callable[[RoiRecord, bool], tuple[np.ndarray, bool]] = plain_pixels,
+              proposals: Optional[dict] = None, num_proposals: int = 0,
+              with_masks: bool = False) -> HostBatch:
+    """The :class:`HostBatch` of uint8 records of one orientation.
 
     ``with_ignore``: whether the batch carries ``gt_ignore``, which the
     train loader and :func:`eval_batches` decide over the whole roidb
     (:func:`roidb_with_ignore`); None decides it over ``records``, for a
     caller whose records are the whole roidb.
     ``flips``: a horizontal flip for each record (default: none).
-    ``load(rec) -> (pixels, ok)``: the record's pixels (default
-    :func:`load_image`); a record loaded with ``ok=False`` is a stand-in
-    whose boxes and classes are kept but whose gt slots are all invalid.
-    ``proposals``: a :func:`load_proposals` map; the batch then carries
-    ``ext_rois``/``ext_valid`` of ``num_proposals`` rows an image
+    ``pixels(rec, flip) -> (pixels, ok)``: the record's pixels, flipped
+    (default :func:`plain_pixels`); a record loaded with ``ok=False`` is a
+    stand-in whose boxes and classes are kept but whose gt slots are all
+    invalid.  ``proposals``: a :func:`load_proposals` map; the batch then
+    carries ``ext_rois``/``ext_valid`` of ``num_proposals`` rows an image
     (:func:`external_rois`), looked up by ``image_id``, a stand-in's too.
     ``with_masks``: the batch carries ``gt_masks``, each real gt slot's
     segmentation rasterized over its unflipped box (:func:`rasterize_mask`)
@@ -246,19 +293,17 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
     if with_ignore is None:
         with_ignore = roidb_with_ignore(records)
     g = cfg.max_gt_boxes
-    images, hws, boxes, classes, valid, ignore, ext, masks = [], [], [], [], [], [], [], []
+    images, src, hws, boxes, classes, valid, ignore, ext, masks = [], [], [], [], [], [], [], [], []
     for rec, flip in zip(records, flips or [False] * len(records), strict=True):
-        pixels, ok = load(rec)
-        if pixels.dtype != np.uint8:
+        img, ok = pixels(rec, flip)
+        if img.dtype != np.uint8:
             raise ValueError(f"record {rec.image_id!r}: the loader takes uint8 images, "
-                             f"got {pixels.dtype}")
-        rec_boxes = rec.boxes
-        if flip:
-            pixels, rec_boxes = hflip(pixels, rec_boxes, rec.width)
+                             f"got {img.dtype}")
+        rec_boxes = flip_boxes(rec.boxes, rec.width) if flip else rec.boxes
         scale = record_scale(cfg, rec)
         nh, nw = int(round(rec.height * scale)), int(round(rec.width * scale))
-        images.append(letterbox_uint8(torch.from_numpy(pixels).to(device),
-                                      record_canvas(cfg, rec), nh, nw))
+        images.append(img.reshape(-1))
+        src.append(img.shape[:2])
         hws.append([nh, nw])
         n = min(len(rec_boxes), g)
         ign = rec.ignore_flags
@@ -285,17 +330,79 @@ def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
             masks.append(gm)
         if proposals is not None:
             ext.append(external_rois(rec, proposals, num_proposals, flip, scale, nh, nw))
-    return Batch(
-        images=torch.stack(images),
-        image_hw=torch.tensor(np.asarray(hws, np.float32), device=device),
-        gt_boxes=torch.tensor(np.stack(boxes), device=device),
-        gt_classes=torch.tensor(np.stack(classes), device=device),
-        gt_valid=torch.tensor(np.stack(valid), device=device),
-        gt_ignore=torch.tensor(np.stack(ignore), device=device) if with_ignore else None,
-        ext_rois=torch.tensor(np.stack([r for r, _ in ext]), device=device) if ext else None,
-        ext_valid=torch.tensor(np.stack([v for _, v in ext]), device=device) if ext else None,
-        gt_masks=torch.tensor(np.stack(masks), device=device) if with_masks else None,
+    return HostBatch(
+        pixels=np.concatenate(images),
+        src_hw=np.asarray(src, np.int32).reshape(-1, 2),
+        image_hw=np.asarray(hws, np.float32),
+        canvas_hw=np.asarray(canvases.pop(), np.int32),
+        gt_boxes=np.stack(boxes),
+        gt_classes=np.stack(classes),
+        gt_valid=np.stack(valid),
+        gt_ignore=np.stack(ignore) if with_ignore else None,
+        ext_rois=np.stack([r for r, _ in ext]) if ext else None,
+        ext_valid=np.stack([v for _, v in ext]) if ext else None,
+        gt_masks=np.stack(masks) if with_masks else None,
     )
+
+
+def letterbox_images(pixels: torch.Tensor, src_hw: np.ndarray, image_hw: np.ndarray,
+                     canvas_hw: np.ndarray) -> torch.Tensor:
+    """(B, ch, cw, 3) uint8 canvases on ``pixels``' device from a
+    :class:`HostBatch`'s flat ``pixels`` (already there) and its geometry
+    (host arrays): each image resized to its (nh, nw), rounded back to
+    uint8 and pasted top-left into zeros."""
+    ch, cw = (int(v) for v in canvas_hw)
+    images = torch.zeros((len(src_hw), ch, cw, 3), dtype=torch.uint8, device=pixels.device)
+    off = 0
+    for i, ((h, w), (nh, nw)) in enumerate(zip(src_hw.tolist(), image_hw.astype(int).tolist())):
+        image = pixels[off:off + h * w * 3].view(h, w, 3)
+        off += h * w * 3
+        if (h, w) == (nh, nw):
+            images[i, :nh, :nw] = image
+        else:
+            resized = resize_linear(image, nh, nw)
+            images[i, :nh, :nw] = torch.clamp(torch.round(resized), 0, 255).to(torch.uint8)
+    return images
+
+
+def device_batch(fields: dict, hb_geometry: tuple) -> Batch:
+    """The :class:`~.batch.Batch` from a host batch's non-None fields
+    already on the device (``fields``: name -> tensor) and its geometry
+    ``(src_hw, image_hw, canvas_hw)`` as host arrays."""
+    return Batch(
+        images=letterbox_images(fields["pixels"], *hb_geometry),
+        image_hw=fields["image_hw"],
+        gt_boxes=fields["gt_boxes"],
+        gt_classes=fields["gt_classes"],
+        gt_valid=fields["gt_valid"],
+        gt_ignore=fields.get("gt_ignore"),
+        ext_rois=fields.get("ext_rois"),
+        ext_valid=fields.get("ext_valid"),
+        gt_masks=fields.get("gt_masks"),
+    )
+
+
+def device_half(hb: HostBatch, device) -> Batch:
+    """:func:`host_half`'s batch on ``device``, in the caller's thread and
+    stream: every array is copied (never aliased: a host batch's arrays
+    may be views of an shm ring slot or a cache entry), then letterboxed.
+    ``parallel/prefetch.py::device_prefetch`` does the same from pinned
+    staging on a copy stream."""
+    device = torch.device(device)
+    fields = {name: torch.tensor(arr, device=device)
+              for name, arr in zip(HostBatch._fields, hb) if arr is not None}
+    return device_batch(fields, (hb.src_hw, hb.image_hw, hb.canvas_hw))
+
+
+def assemble(records: Sequence[RoiRecord], cfg: DataConfig, device,
+             flips: Optional[Sequence[bool]] = None, with_ignore: Optional[bool] = None,
+             proposals: Optional[dict] = None, num_proposals: int = 0,
+             with_masks: bool = False) -> Batch:
+    """One batch on ``device`` from uint8 records of one orientation:
+    ``device_half(host_half(...))`` (:func:`host_half` for the
+    arguments)."""
+    return device_half(host_half(records, cfg, flips, with_ignore, proposals=proposals,
+                                 num_proposals=num_proposals, with_masks=with_masks), device)
 
 
 class DetectionLoader:
@@ -318,7 +425,7 @@ class DetectionLoader:
     fail to load (an ``OSError`` or ``ValueError``, after ``io_retries``
     retries) is quarantined when first met.  Both stay in the schedule as a blank
     image with no valid gt, and each is journaled once to
-    ``quarantine_path`` (``data/cache.py``).  Any other error, such as
+    ``quarantine_path`` (``data/cache.py``), whichever process meets it.  Any other error, such as
     PIL missing on the host, propagates.
 
     ``run_length``: batches come in runs of that many consecutive
@@ -334,20 +441,33 @@ class DetectionLoader:
     each pair's records are the real ones, which alone are scored.  A
     quarantined record still counts in the metric, its gt as misses.
 
-    Single host only: the JAX loader's ``rank``/``world`` slicing,
-    prefetch, the thread pool and the input service are not ported.
+    Where the host half runs (JAX's knobs and defaults): ``num_workers``
+    threads of a pool when above 1 (default: ``min(8, cores)`` for
+    training on a host with more than one core, 0 for eval), the train
+    stream read ahead by a ``loader-prefetch`` thread with ``prefetch``;
+    or, with ``service_workers`` > 0 (default ``data.num_workers``), the
+    process input service with ``worker_respawns`` respawns a worker
+    (default ``data.worker_respawns``) and, with ``data.shm_transport``,
+    its shm ring.  ``data.cache_dir`` turns on the tensor cache.  Every
+    backend gives the synchronous stream's bits.  Single host only: the
+    JAX loader's ``rank``/``world`` slicing is not ported.
 
     ``proposals`` (Fast R-CNN mode): a :func:`load_proposals` map holding
     every record of the roidb (checked here), ``num_proposals`` rows an
     image in each batch's ``ext_rois``.  ``with_masks``: batches carry
-    ``gt_masks`` (:func:`assemble`); a quarantined record's are zero."""
+    ``gt_masks`` (:func:`host_half`); a quarantined record's are zero.
+    ``quarantine_announced``: ids already journaled (a service worker's
+    loader gets its parent's), never journaled again here."""
 
     def __init__(self, roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int, device,
                  seed: int = 0, quarantine_path: Optional[str] = None,
                  io_retries: int = 2, proposals: Optional[dict] = None,
                  num_proposals: int = 0, with_masks: bool = False,
                  run_length: int = 1, train: bool = True,
-                 num_classes: Optional[int] = None) -> None:
+                 num_classes: Optional[int] = None, prefetch: bool = True,
+                 num_workers: Optional[int] = None, service_workers: Optional[int] = None,
+                 worker_respawns: Optional[int] = None,
+                 quarantine_announced: Optional[Iterable[str]] = None) -> None:
         self.cfg = cfg
         self.train = train
         self.run_length = max(run_length, 1)
@@ -357,7 +477,10 @@ class DetectionLoader:
         self.seed = seed
         self.quarantine_path = quarantine_path
         self.io_retries = max(int(io_retries), 0)
-        self._quarantined: set[str] = set()
+        self._num_classes = num_classes
+        # Pool threads quarantine concurrently.
+        self._quarantine_lock = threading.Lock()
+        self._quarantined: set[str] = set(quarantine_announced or ())
         self._bad_annotations: dict[str, str] = {}
         for r in roidb:
             why = annotation_error(r, num_classes)
@@ -379,6 +502,33 @@ class DetectionLoader:
         if train and not cfg.aspect_grouping and len(self.roidb) < batch_size:
             raise ValueError(f"{len(self.roidb)} records make no full batch of {batch_size} "
                              "without data.aspect_grouping")
+        self.prefetch = prefetch and train
+        if num_workers is None:
+            # JAX's heuristic: the pool only for training, on a host with
+            # cores to spare.
+            cores = os.cpu_count() or 1
+            num_workers = (min(8, cores) if cores > 1 else 0) if train else 0
+        self.num_workers = num_workers
+        self.service_workers = max(int(cfg.num_workers if service_workers is None
+                                       else service_workers), 0)
+        self.worker_respawns = max(int(cfg.worker_respawns if worker_respawns is None
+                                       else worker_respawns), 0)
+        # One summary an input service this loader ran (hellos, deaths,
+        # reassignments, fallback), appended when the service closes.
+        self.service_runs: list[dict] = []
+        self._tensor_cache: Optional[TensorCache] = None
+        if cfg.cache_dir:
+            self._tensor_cache = TensorCache(cfg.cache_dir, quarantine_path=quarantine_path)
+        bad_env = os.environ.get(CHAOS_BAD_IMAGES_ENV, "")
+        self._chaos_bad_images = frozenset(t.strip() for t in bad_env.split(",") if t.strip())
+        if self._chaos_bad_images:
+            log.warning("chaos: simulated-corrupt image ids armed: %s",
+                        sorted(self._chaos_bad_images))
+        nan_env = os.environ.get(CHAOS_NAN_ENV, "") if train else ""
+        self._nan_steps = frozenset(int(t) for t in nan_env.split(",") if t.strip())
+        if self._nan_steps:
+            log.warning("chaos: NaN injection armed for global batch indices %s",
+                        sorted(self._nan_steps))
 
     # -- ordering ----------------------------------------------------------
 
@@ -422,25 +572,162 @@ class DetectionLoader:
                 yield batch_idx, flips
             epoch += 1
 
-    def _local_spec_stream(self, skip_batches: int = 0):
-        """The specs as plain ints and bools, the first ``skip_batches``
-        drawn and dropped (resume fast-forward: no pixel is decoded)."""
-        specs = self._batch_index_specs()
+    def _local_spec_stream(self, skip_batches: int = 0, epochs: Optional[int] = None):
+        """The specs as plain ints and bools (a few a batch: what ships to
+        service workers), the first ``skip_batches`` drawn and dropped
+        (resume fast-forward: no pixel is decoded).  At the port's one
+        host this is JAX's ``_global_spec_stream`` too."""
+        specs = self._batch_index_specs(epochs)
         for _ in range(skip_batches):
             if next(specs, None) is None:
                 return
         for batch_idx, flips in specs:
             yield [int(j) for j in batch_idx], [bool(f) for f in flips]
 
-    def iter_from(self, skip_batches: int = 0) -> Iterator[Batch]:
+    # -- train stream ------------------------------------------------------
+
+    def iter_from(self, skip_batches: int = 0) -> "LoaderStream":
         """Batches from the ``skip_batches``-th of the schedule on: step k
         of a resumed run gets the batch step k of an uninterrupted run
-        would have."""
-        for idxs, flips in self._local_spec_stream(skip_batches):
-            yield self._assemble(idxs, flips)
+        would have.  A :class:`LoaderStream`: device batches, its ``host``
+        the host batches (read ahead by the ``loader-prefetch`` thread
+        with ``prefetch``, unless the input service already runs ahead);
+        close it to reclaim threads and workers."""
+        it = self._train_batches(skip_batches)
+        if self.prefetch and self.service_workers == 0:
+            it = _Prefetched(it, depth=2)
+        return LoaderStream(it, self.device)
 
     def __iter__(self):
         return self.iter_from() if self.train else self.eval_batch_range()
+
+    def _train_batches(self, skip_batches: int = 0) -> Iterator[HostBatch]:
+        it = self._raw_train_batches(skip_batches)
+        if not self._nan_steps:
+            yield from it
+            return
+        # Every backend yields in schedule order, so the position is the
+        # global batch index.
+        try:
+            for idx, batch in enumerate(it, start=skip_batches):
+                yield self._poison(batch, idx) if idx in self._nan_steps else batch
+        finally:
+            it.close()
+
+    def _poison(self, batch: HostBatch, idx: int) -> HostBatch:
+        """Chaos hook (``CHAOS_NAN_ENV``): NaN pixels need float images,
+        and the port's are uint8 only, so this refuses as JAX's ``_poison``
+        refuses a uint8 batch (the same error)."""
+        raise ValueError(f"{CHAOS_NAN_ENV} needs float images (synthetic/normalized "
+                         f"paths); batch {idx} is {batch.pixels.dtype}")
+
+    def _raw_train_batches(self, skip_batches: int = 0,
+                           epochs: Optional[int] = None) -> Iterator[HostBatch]:
+        specs = self._local_spec_stream(skip_batches, epochs)
+        if self.service_workers > 0:
+            # The service's cursor starts at the global batch index, so
+            # resume and chaos speak the schedule's coordinates.
+            yield from self._service_batches(specs, start_index=skip_batches, global_specs=True)
+        elif self.num_workers <= 1:
+            for spec in specs:
+                yield self._assemble_rows(spec)
+        else:
+            yield from self._pooled_batches(specs)
+
+    def _pooled_batches(self, spec_iter) -> Iterator[HostBatch]:
+        """A thread pool assembling ``num_workers`` host batches ahead,
+        yielded in order.  When the spec stream runs dry (bounded epochs,
+        an eval range) the pending deque is drained, not dropped, and the
+        generator returns instead of letting ``next(specs)``'s
+        StopIteration escape as a PEP-479 RuntimeError."""
+        with ThreadPoolExecutor(self.num_workers) as pool:
+            pending: collections.deque = collections.deque()
+
+            def pump() -> bool:
+                try:
+                    spec = next(spec_iter)
+                except StopIteration:
+                    return False
+                pending.append(pool.submit(self._assemble_rows, spec))
+                return True
+
+            for _ in range(self.num_workers):
+                if not pump():
+                    break
+            while pending:
+                batch = pending.popleft().result()
+                pump()
+                yield batch
+
+    # -- the input service -------------------------------------------------
+
+    def _worker_payload(self) -> dict:
+        """What a service worker rebuilds this loader from (spawn: nothing
+        is inherited).  No device: a worker's loader is on the CPU and runs
+        the host half only.  ``quarantine_announced`` keeps workers from
+        journaling again what this process already did."""
+        with self._quarantine_lock:
+            announced = sorted(self._quarantined)
+        return {
+            "roidb": self.roidb, "cfg": self.cfg, "batch_size": self.batch_size,
+            "train": self.train, "seed": self.seed, "with_masks": self.with_masks,
+            "proposals": self.proposals, "num_proposals": self.num_proposals,
+            "run_length": self.run_length, "quarantine_path": self.quarantine_path,
+            "io_retries": self.io_retries, "num_classes": self._num_classes,
+            "quarantine_announced": announced,
+        }
+
+    def _shm_slot_bytes(self) -> int:
+        """One shm slot: ``data.shm_slot_mb`` MiB, or the host batch of a
+        full batch of source images at the canvas area (uint8) with its gt,
+        masks and proposals, 25% headroom over it as in JAX, and the header
+        region.  A batch of larger source images overflows its slot and
+        rides the pickle path for that batch (``data_shm_overflows_total``),
+        so this is a throughput knob, not a correctness one."""
+        from mx_rcnn_tpu_torch.data.shm_ring import HEADER_RESERVE
+
+        if self.cfg.shm_slot_mb > 0:
+            return self.cfg.shm_slot_mb * (1 << 20)
+        b = max(self.batch_size, 1)
+        h, w = self.cfg.image_size
+        g = self.cfg.max_gt_boxes
+        payload = b * h * w * 3                 # source pixels, uint8
+        payload += b * (2 * 4 + 2 * 4) + 2 * 4  # src_hw, image_hw, canvas_hw
+        payload += b * g * (4 * 4 + 4 + 1 + 1)  # boxes, classes, valid, ignore
+        if self.with_masks:
+            payload += b * g * GT_MASK_SIZE * GT_MASK_SIZE * 4
+        if self.proposals is not None:
+            payload += b * self.num_proposals * (4 * 4 + 1)
+        return int(payload * 1.25) + HEADER_RESERVE + 4096
+
+    def _service_batches(self, spec_iter, start_index: int = 0,
+                         global_specs: bool = False) -> Iterator[HostBatch]:
+        """A spec stream through the process input service, yielded in
+        spec order; closing or exhausting this generator tears the service
+        down.  ``global_specs``: the training path's global schedule, the
+        workers slicing their host's rows (:func:`_service_assembler_global`)."""
+        from mx_rcnn_tpu_torch.data.service import InputService
+
+        shm_slots = max(int(self.cfg.shm_slots), 0) if self.cfg.shm_transport else 0
+        svc = InputService(
+            specs=spec_iter,
+            assemble=self._assemble_global_rows if global_specs else self._assemble_rows,
+            builder=_service_assembler_global if global_specs else _service_assembler,
+            payload=self._worker_payload(),
+            num_workers=self.service_workers,
+            start_index=start_index,
+            respawns=self.worker_respawns,
+            shm_slots=shm_slots,
+            shm_slot_bytes=self._shm_slot_bytes() if shm_slots else 0,
+            quarantine_path=self.quarantine_path,
+        )
+        try:
+            yield from svc
+        finally:
+            svc.close()
+            self.service_runs.append({"hellos": list(svc.hellos), "deaths": svc.deaths,
+                                      "reassigned": svc.reassigned,
+                                      "fell_back": svc.fell_back})
 
     # -- eval ----------------------------------------------------------------
 
@@ -455,17 +742,45 @@ class DetectionLoader:
     def eval_batch_range(self, start: int = 0, stop: Optional[int] = None
                          ) -> Iterator[tuple[Batch, list[RoiRecord]]]:
         """``(batch, records)`` for eval batches ``start:stop`` of
-        :meth:`eval_specs`; no pixel outside the range is decoded."""
-        for rows, idxs in eval_index_specs(self.roidb, self.cfg, self.batch_size)[start:stop]:
-            yield self._assemble(rows, [False] * len(rows)), [self.roidb[j] for j in idxs]
+        :meth:`eval_specs`; no pixel outside the range is decoded.  The
+        host halves come from the service (``service_workers``), the pool
+        (``num_workers`` > 1) or this thread, the device half runs here:
+        every backend gives the same bytes."""
+        specs = eval_index_specs(self.roidb, self.cfg, self.batch_size)[start:stop]
+        rec_lists = [[self.roidb[j] for j in idxs] for _, idxs in specs]
+        row_specs = iter([(rows, [False] * len(rows)) for rows, _ in specs])
+        if self.service_workers > 0:
+            host: Iterator[HostBatch] = self._service_batches(row_specs, start_index=start)
+        elif self.num_workers > 1:
+            host = self._pooled_batches(row_specs)
+        else:
+            host = (self._assemble_rows(s) for s in row_specs)
+        try:
+            for hb, recs in zip(host, rec_lists):
+                yield device_half(hb, self.device), recs
+        finally:
+            host.close()
 
     # -- records -------------------------------------------------------------
 
-    def _assemble(self, idxs: Sequence[int], flips: Sequence[bool]) -> Batch:
+    def _assemble_rows(self, spec) -> HostBatch:
+        """The host half of one ``(roidb indices, flips)`` spec: the unit
+        of work of the pool and the service alike."""
+        idxs, flips = spec
         recs = [self._usable(self.roidb[j]) for j in idxs]
-        return assemble(recs, self.cfg, self.device, flips, self.with_ignore,
-                        load=self._load_image, proposals=self.proposals,
-                        num_proposals=self.num_proposals, with_masks=self.with_masks)
+        return host_half(recs, self.cfg, flips, self.with_ignore, pixels=self._pixels,
+                         proposals=self.proposals, num_proposals=self.num_proposals,
+                         with_masks=self.with_masks)
+
+    def _assemble_global_rows(self, spec) -> HostBatch:
+        """One global spec's rows of this host: at the port's one host
+        (world 1) all of them, so :meth:`_assemble_rows`.  Multi-host
+        slicing comes with ``rank``/``world``."""
+        return self._assemble_rows(spec)
+
+    def _assemble(self, idxs: Sequence[int], flips: Sequence[bool]) -> Batch:
+        """One batch on the loader's device, both halves in this thread."""
+        return device_half(self._assemble_rows((idxs, flips)), self.device)
 
     def _usable(self, rec: RoiRecord) -> RoiRecord:
         """The record, or for quarantined annotations a blank stand-in with
@@ -483,12 +798,37 @@ class DetectionLoader:
             return np.zeros_like(rec.image_array)
         return np.zeros((rec.height, rec.width, 3), np.uint8)
 
+    def _pixels(self, rec: RoiRecord, flip: bool) -> tuple[np.ndarray, bool]:
+        """``(pixels, ok)``: the record's decoded pixels, flipped when
+        ``flip``, through the tensor cache when it is on.  A hit returns
+        the bytes a rebuild would, so hits and misses are bitwise the same
+        downstream.  A record that is chaos-bad or already quarantined
+        never reads the cache: a blob from a healthier life of the file
+        must not mask the failure."""
+        cache = self._tensor_cache
+        if cache is not None and (rec.image_id in self._chaos_bad_images
+                                  or rec.image_id in self._quarantined):
+            cache = None
+        key = cache.key(rec, flip) if cache is not None else None
+        if cache is not None:
+            hit = cache.get(key, rec.image_id)
+            if hit is not None:
+                return hit[0], True
+        img, ok = self._load_image(rec)
+        if flip:
+            img = img[:, ::-1].copy()
+        if ok and cache is not None and img.dtype == np.uint8:
+            cache.put(key, img, img.shape[0], img.shape[1])
+        return img, ok
+
     def _load_image(self, rec: RoiRecord) -> tuple[np.ndarray, bool]:
         """``(pixels, ok)``: bounded retries on I/O errors, then quarantine
         and a blank image with ``ok=False``."""
         err: Optional[BaseException] = None
         for attempt in range(self.io_retries + 1):
             try:
+                if rec.image_id in self._chaos_bad_images:
+                    raise ValueError("chaos: simulated corrupt image")
                 return load_image(rec), True
             except (OSError, ValueError) as e:
                 err = e
@@ -498,17 +838,20 @@ class DetectionLoader:
         return self._blank_pixels(rec), False
 
     def _quarantine(self, rec: RoiRecord, error: BaseException, reason: str = "io") -> None:
-        if rec.image_id in self._quarantined:
-            return  # recorded once, not every epoch
-        self._quarantined.add(rec.image_id)
         retries = self.io_retries if reason == "io" else 0
-        log.error("quarantining image %r (%s; %s: %s) after %d retries; substituting a blank "
-                  "example", rec.image_id, reason, type(error).__name__, error, retries)
-        if self.quarantine_path is not None:
-            quarantine_append(self.quarantine_path, {
-                "image_id": rec.image_id, "path": rec.image_path, "reason": reason,
-                "error": f"{type(error).__name__}: {error}", "retries": retries,
-            })
+        with self._quarantine_lock:
+            if rec.image_id in self._quarantined:
+                return  # recorded once, not every epoch
+            self._quarantined.add(rec.image_id)
+            log.error("quarantining image %r (%s; %s: %s) after %d retries; substituting a "
+                      "blank example", rec.image_id, reason, type(error).__name__, error, retries)
+            if self.quarantine_path is not None:
+                # Once a journal: a service worker that meets a record another
+                # worker (or this process) journaled does not journal it again.
+                quarantine_append(self.quarantine_path, {
+                    "image_id": rec.image_id, "path": rec.image_path, "reason": reason,
+                    "error": f"{type(error).__name__}: {error}", "retries": retries,
+                }, once_per=("image_id", "reason"))
 
 
 def eval_index_specs(roidb: Sequence[RoiRecord], cfg: DataConfig,
@@ -544,3 +887,125 @@ def eval_batches(roidb: Sequence[RoiRecord], cfg: DataConfig, batch_size: int,
     scoring reads the gt masks from the roidb."""
     yield from DetectionLoader(roidb, cfg, batch_size, device, train=False, proposals=proposals,
                                num_proposals=num_proposals)
+
+
+def _service_assembler(payload: dict):
+    """Rebuild the parent's loader inside a spawned service worker and
+    return its ``_assemble_rows`` (module level, so it pickles by
+    reference).  The worker's loader is on the CPU and never touches the
+    card; ``service_workers=0`` keeps it from starting a service of its
+    own, and ``prefetch=False``, ``num_workers=0`` keep it single-threaded
+    (its parallelism is the process pool)."""
+    loader = DetectionLoader(
+        payload["roidb"], payload["cfg"], payload["batch_size"], "cpu",
+        seed=payload["seed"], quarantine_path=payload["quarantine_path"],
+        io_retries=payload["io_retries"], proposals=payload["proposals"],
+        num_proposals=payload["num_proposals"], with_masks=payload["with_masks"],
+        run_length=payload["run_length"], train=payload["train"],
+        num_classes=payload["num_classes"], prefetch=False, num_workers=0,
+        service_workers=0, worker_respawns=0,
+        quarantine_announced=payload["quarantine_announced"])
+    return loader._assemble_rows
+
+
+def _service_assembler_global(payload: dict):
+    """Like :func:`_service_assembler`, for global specs: the rebuilt
+    loader's ``_assemble_global_rows``."""
+    return _service_assembler(payload).__self__._assemble_global_rows
+
+
+class _Prefetched:
+    """Background read-ahead over a batch iterator (the
+    ``loader-prefetch`` thread), with a ``close()`` that reclaims the
+    thread: it drains the queue until the thread can finish, joins it,
+    closes the source, and with ``raise_pending`` re-raises an exception
+    the thread hit that the consumer never saw."""
+
+    def __init__(self, it: Iterator, depth: int = 2) -> None:
+        self._it = it
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = object()
+        self._exc: Optional[BaseException] = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._worker, name="loader-prefetch",
+                                        daemon=True)
+        self._thread.start()
+
+    def _worker(self) -> None:
+        try:
+            for item in self._it:
+                self._q.put(item)
+                if self._closed:
+                    break
+        except BaseException as e:  # noqa: BLE001 — handed to the consumer
+            self._exc = e
+        finally:
+            self._q.put(self._stop)
+
+    def __iter__(self) -> "_Prefetched":
+        return self
+
+    def __next__(self):
+        if self._closed:
+            raise StopIteration
+        item = self._q.get()
+        if item is self._stop:
+            self._closed = True
+            self._thread.join(timeout=5.0)
+            if self._exc is not None:
+                exc, self._exc = self._exc, None
+                raise exc
+            raise StopIteration
+        return item
+
+    def close(self, raise_pending: bool = True) -> None:
+        """Join the thread and close the source iterator; with
+        ``raise_pending`` a source exception the consumer never consumed
+        is raised here instead of being swallowed."""
+        if self._closed:
+            self._close_source()
+            return
+        self._closed = True
+        # Unblock a thread stuck on a full queue, then wait for its final
+        # stop marker (bounded: it checks _closed after each put).
+        while self._thread.is_alive():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)
+        self._close_source()
+        if raise_pending and self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+    def _close_source(self) -> None:
+        close = getattr(self._it, "close", None)
+        if close is not None:
+            try:
+                close()
+            except RuntimeError:
+                pass  # generator already executing or closed
+
+
+class LoaderStream:
+    """Device batches from a host-batch stream: each :class:`HostBatch`
+    through :func:`device_half` in the consumer's thread.  ``host`` is the
+    host stream itself, which ``parallel/prefetch.py::device_prefetch``
+    uploads from pinned staging on a copy stream instead.  ``close()``
+    closes the host stream (threads, pool and service workers with it)."""
+
+    def __init__(self, host: Iterator[HostBatch], device) -> None:
+        self.host = host
+        self.device = device
+
+    def __iter__(self) -> "LoaderStream":
+        return self
+
+    def __next__(self) -> Batch:
+        return device_half(next(self.host), self.device)
+
+    def close(self) -> None:
+        close = getattr(self.host, "close", None)
+        if close is not None:
+            close()

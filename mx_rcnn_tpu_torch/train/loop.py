@@ -51,7 +51,7 @@ from mx_rcnn_tpu_torch.data.datasets import build_dataset
 from mx_rcnn_tpu_torch.data.loader import DetectionLoader, load_proposals
 from mx_rcnn_tpu_torch.data.roidb import filter_roidb
 from mx_rcnn_tpu_torch.detection.detector import TwoStageDetector
-from mx_rcnn_tpu_torch.parallel.prefetch import PrefetchStats, _timed_pulls
+from mx_rcnn_tpu_torch.parallel.prefetch import PrefetchStats, device_prefetch
 from mx_rcnn_tpu_torch.parallel.step import make_train_step
 from mx_rcnn_tpu_torch.train.checkpoint import (
     delete_steps_after,
@@ -138,12 +138,17 @@ def build_all(cfg: Config, device=None, variables: Optional[dict] = None,
 
 def _runs(it, n: int):
     """Consecutive groups of ``n`` batches of ``it`` (a loader's runs of
-    ``n`` same-canvas batches), each a list."""
-    while True:
-        run = list(itertools.islice(it, n))
-        if len(run) < n:
-            return
-        yield run
+    ``n`` same-canvas batches), each a list.  Closing this closes ``it``:
+    the teardown chain (here, the device prefetch, the loader's threads,
+    the input service's workers) must reach the bottom."""
+    try:
+        while True:
+            run = list(itertools.islice(it, n))
+            if len(run) < n:
+                return
+            yield run
+    finally:
+        it.close()
 
 
 def checkpoint_dir(cfg: Config, workdir: Optional[str] = None) -> str:
@@ -193,14 +198,23 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
           workdir: Optional[str] = None, resume: bool = False,
           pretrained: Optional[str] = None, strict_resume: bool = False,
           loader: Optional[DetectionLoader] = None, extra_freeze: tuple[str, ...] = (),
-          proposals_path: Optional[str] = None) -> TrainState:
+          proposals_path: Optional[str] = None, host_depth: int = 1) -> TrainState:
     """Train up to step ``steps`` (default: the schedule's total) and
     return the final state.
 
     ``log`` gets one JSON line a drain: the step, the interval's metric
-    means (``nonfinite`` included), ``data_stall_ms`` (time in
-    ``next(loader)`` an optimizer step) and ``img_s`` (images a second
-    since the previous drain; null at the first).  With
+    means (``nonfinite`` included), ``data_stall_ms`` (the time the loop
+    waited for a host batch past the prefetch buffer, an optimizer step:
+    ``parallel/prefetch.py::PrefetchStats``) and ``img_s`` (images a
+    second since the previous drain; null at the first).  Batches come
+    through ``parallel/prefetch.py::device_prefetch``: ``host_depth`` host
+    batches read ahead by the ``host-prefetch`` thread, uploaded from
+    pinned memory and letterboxed on a copy stream on the card; with
+    ``host_depth=0`` every batch is assembled in the loop's thread, and the
+    default loader then has no pool and no read-ahead either (the
+    synchronous reference path).  The data iterator is closed at a
+    rollback, a preemption and the end, so no thread or decode worker
+    outlives ``train()``.  With
     ``train.steps_per_call`` K, ``steps - start`` must be a multiple of
     K.  ``workdir``: the run directory's
     parent (checkpoints, metrics, quarantine journal, config); without it
@@ -235,7 +249,8 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
         roidb = filter_roidb(build_dataset(cfg.data, train=True).roidb())
         loader = DetectionLoader(
             roidb, cfg.data, global_batch // accum, dev, seed=cfg.train.seed,
-            run_length=max(k, accum),
+            run_length=max(k, accum), prefetch=host_depth > 0,
+            num_workers=None if host_depth > 0 else 0,
             quarantine_path=f"{run_dir}/quarantine.jsonl" if workdir else None,
             proposals=load_proposals(proposals_path) if proposals_path else None,
             num_proposals=cfg.model.rpn.train_post_nms_top_n,
@@ -265,7 +280,8 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
         # After a rollback ``extra_skip`` steps of the schedule are
         # dropped: the retried steps see fresh data, never the poison.  An
         # accumulated step consumes ``accum`` loader batches.
-        it = _timed_pulls(loader.iter_from((from_step + extra_skip) * accum), stall)
+        stream = loader.iter_from((from_step + extra_skip) * accum)
+        it = device_prefetch(stream.host, dev, depth=2, host_depth=host_depth, stats=stall)
         return _runs(it, max(k, accum)) if max(k, accum) > 1 else it
 
     guardian = Guardian(max_rollbacks=cfg.train.guardian_rollbacks if workdir else 0,
@@ -299,6 +315,7 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
                         restored = state.step
                         delete_steps_after(ckpt_dir, restored)
                         data_skip += done - restored
+                        it.close()  # the superseded stream's threads and workers
                         it = data_iter(restored, data_skip)
                         writer.truncate(restored)
                         speedo = Speedometer(global_batch)
@@ -321,6 +338,7 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
                     raise Preempted(done, ckpt_dir if workdir else None)
                 i = done
     finally:
+        it.close()
         if writer:
             writer.close()
     if workdir:

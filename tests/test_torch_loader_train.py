@@ -86,8 +86,11 @@ def _loaders(ours, theirs, canvas, batch_size, seed=0, tmp_path=None, **over):
     q = {}
     if tmp_path is not None:
         q = dict(port=str(tmp_path / "port.jsonl"), jax=str(tmp_path / "jax.jsonl"))
+    # Both synchronous (no pool, no read-ahead), so that what a test counts
+    # (decodes, quarantines) is what the consumed batches needed.
     port = DetectionLoader(ours, data, batch_size, "cpu", seed=seed,
-                           quarantine_path=q.get("port"), io_retries=0)
+                           quarantine_path=q.get("port"), io_retries=0, prefetch=False,
+                           num_workers=0)
     ref = JaxLoader(theirs, jdata, batch_size=batch_size, train=True, seed=seed, prefetch=False,
                     num_workers=0, service_workers=0, quarantine_path=q.get("jax"),
                     io_retries=0)

@@ -72,14 +72,16 @@ def test_loader_run_schedule_matches_jax(run_length, canvas):
 
 
 def _assembled(monkeypatch):
+    """The ``(indices, flips)`` of each batch the loader assembles (its
+    host half, ``_assemble_rows``)."""
     seen = []
-    original = DetectionLoader._assemble
+    original = DetectionLoader._assemble_rows
 
-    def spy(self, idxs, flips):
-        seen.append((list(idxs), list(flips)))
-        return original(self, idxs, flips)
+    def spy(self, spec):
+        seen.append((list(spec[0]), list(spec[1])))
+        return original(self, spec)
 
-    monkeypatch.setattr(DetectionLoader, "_assemble", spy)
+    monkeypatch.setattr(DetectionLoader, "_assemble_rows", spy)
     return seen
 
 
@@ -88,8 +90,10 @@ def test_steps_per_call_2_is_bitwise_steps_per_call_1(monkeypatch):
     ends, schedules = [], []
     for k in (1, 2):
         lines = []
+        # host_depth=0: the synchronous path, where the assembled batches
+        # are the consumed ones (a read-ahead assembles more).
         state = train(_tiny(f"train.steps_per_call={k}", "train.log_every=2"), steps=4,
-                      device="cpu", log=lines.append)
+                      device="cpu", log=lines.append, host_depth=0)
         assert state.step == 4 and state.optimizer.step == 4
         # A call's first drain is at its end: step k.
         assert [json.loads(x)["step"] for x in lines] == ([1, 2, 4] if k == 1 else [2, 4])

@@ -17,7 +17,13 @@ counterpart and against the port's own uninterrupted run otherwise.
     the last finite checkpoint, skips its data window and finishes
     finite; poison at every step raises ``TrainingDiverged``;
   * ``train_cli`` trains 2 steps on a VOC directory written here (JPEGs
-    from PIL) and runs the final eval.
+    from PIL) and runs the final eval;
+  * the input runtime: ``train()`` through the input service
+    (``data.num_workers=2``) and the tensor cache ends bitwise where the
+    synchronous run (``host_depth=0``) ends; no ``host-prefetch`` or
+    ``loader-prefetch`` thread and no decode worker outlives ``train()``
+    after a rollback, a preemption or a normal end; the NaN chaos hook
+    refuses the port's uint8 batches with JAX's error.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import dataclasses
 import json
 import logging
 import math
+import multiprocessing as mp
 import os
 import shutil
 import signal
@@ -503,3 +510,71 @@ def test_train_cli_on_a_voc_directory(tmp_path, capsys):
     run = tmp_path / "runs" / "tiny_synthetic"
     assert C.all_steps(str(run / "ckpt")) == [0, 2]
     assert not (run / "quarantine.jsonl").exists()
+
+
+# -- the input runtime ------------------------------------------------------------------
+
+
+def _runtime_alive():
+    return ({t.name for t in threading.enumerate()
+             if t.name in ("host-prefetch", "loader-prefetch") and t.is_alive()},
+            {p.pid for p in mp.active_children()})
+
+
+def test_service_and_cache_train_bitwise_the_sync_run(tmp_path):
+    want = L.train(_cfg(), steps=3, device="cpu", log=lambda line: None, host_depth=0)
+    got = L.train(_cfg("data.num_workers=2", f"data.cache_dir={tmp_path / 'tc'}"), steps=3,
+                  device="cpu", log=lambda line: None)
+    _assert_bitwise(_snapshot(got), _snapshot(want))
+    assert os.listdir(tmp_path / "tc" / "tensors")
+
+
+@pytest.mark.parametrize("end", ["rollback", "preemption", "normal"])
+def test_nothing_outlives_train(tmp_path, monkeypatch, end):
+    """With the input service on (one worker) and the default prefetch."""
+    threads, children = _runtime_alive()
+    cfg = _cfg("data.num_workers=1", "train.checkpoint_every=2")
+    kw = dict(device="cpu", workdir=str(tmp_path), log=lambda line: None)
+    if end == "rollback":
+        _poisoning(monkeypatch, {2})
+        state = L.train(cfg, steps=4, **kw)
+        assert state.step == 4
+    elif end == "preemption":
+        _on_main_thread()
+
+        def log(line):
+            if json.loads(line)["step"] == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        with pytest.raises(Preempted):
+            L.train(cfg, steps=4, **{**kw, "log": log})
+    else:
+        L.train(cfg, steps=2, **kw)
+    assert _runtime_alive() == (threads, children)
+
+
+def test_nan_hook_refuses_uint8_batches_as_jax(monkeypatch):
+    from mx_rcnn_tpu.config import get_config as jax_get_config
+    from mx_rcnn_tpu.data.datasets import SyntheticDataset as JaxSynthetic
+    from mx_rcnn_tpu.data.loader import CHAOS_NAN_ENV as JAX_NAN_ENV
+    from mx_rcnn_tpu.data.loader import DetectionLoader as JaxLoader
+    from mx_rcnn_tpu_torch.data.datasets import SyntheticDataset
+    from mx_rcnn_tpu_torch.data.loader import CHAOS_NAN_ENV, DetectionLoader
+
+    assert CHAOS_NAN_ENV == JAX_NAN_ENV
+    monkeypatch.setenv(CHAOS_NAN_ENV, "1")
+    jds = JaxSynthetic(num_images=8, image_hw=(64, 64), seed=0, dtype="uint8")
+    theirs = JaxLoader(jds.roidb(), jax_get_config("tiny_synthetic").data,
+                       batch_size=2, seed=0, prefetch=False, num_workers=0)
+    ds = SyntheticDataset(num_images=8, image_hw=(64, 64), seed=0)
+    ours = DetectionLoader(ds.roidb(), get_config("tiny_synthetic").data,
+                           2, "cpu")
+    errors = []
+    for stream in (theirs._train_batches(0), ours.iter_from(0)):
+        next(stream)  # batch 0 is not armed
+        with pytest.raises(ValueError) as exc:
+            next(stream)
+        errors.append(str(exc.value))
+        stream.close()
+    assert errors[0] == errors[1] == (f"{CHAOS_NAN_ENV} needs float images (synthetic/"
+                                      "normalized paths); batch 1 is uint8")
