@@ -268,6 +268,41 @@ when every phase passed):
    the card's line.  Then ``run_eval`` on the set at batch 8 with
    ``data.num_workers=2`` and 0: the dumps byte-identical.  B1's and B2's
    launches count as the ``runtime`` paths.
+7j. The configured observability plane (:func:`obs_phase`),
+   ``r50_fpn_coco`` at full width (800x1344, batch 2, compact RPN loss,
+   the mixed policy, random weights from the seed): (a) 10 steps through
+   ``train()`` with ``obs.enabled``, ``obs.metrics_port=0``,
+   ``obs.flush_s=0.5`` and ``profile_dir`` over steps 2-4, a real SIGTERM
+   at the step-4 drain, then the resume to 10 into the same obs directory:
+   the journal exactly ``configured``, the step-0 checkpoint, the drain,
+   its checkpoint and flight dump, ``configured``, the restore and the
+   final checkpoint (plus at least one ``metrics_flush``); one
+   ``train_step`` span a step with its ``data`` and ``step`` children;
+   one ``flight_preempt_drain_*.json``; two profile traces (steps 2-3,
+   stopped by the preemption; step 4, started inside the window on
+   resume), each holding B1's and B2's kernels; ``/metrics`` and
+   ``/healthz`` scraped over HTTP at step 1 answer 200; B1 and B2 in every
+   step.  The five untraced steps that are not first in their run (2 and
+   7-10) are printed beside phase 5's steps at the same index in its run.
+   (b) The ``full`` engine (B1 + B3, batch 2), warmed by one request of
+   each size, serves 4 rounds of 16 requests with spans on and 16 off,
+   one at a time, the set that goes first alternating by round (each
+   round's p50 difference printed), and a ``proposals``-only engine with
+   ``rpn.nms_impl=pallas`` one request with spans on (B4 once): one
+   ``engine_request`` span a traced request with its ``queue`` and
+   ``device`` children; then ``kill()`` writes one
+   ``flight_engine_killed_*.json`` holding every traced request's span.
+   (c) ``python -m mx_rcnn_tpu_torch.obs.report`` over (a)'s and (b)'s
+   directories exits 0, its timelines holding the preemption and the
+   kill.  (d) ``chip_smoke.py --lockcheck-child`` under
+   ``MX_RCNN_LOCKCHECK=1`` runs the engine's ladder (each level, a
+   deadline nothing fits, a swap under load, the kill, the breaker) with
+   the plane and its endpoint on, and 2 train steps through 2 decode
+   workers: zero violations, the order graph printed.  Seconds a step
+   (beside phase 5's), ms a request p50/p99 with spans on and off, the
+   traces' size and the phase's seconds printed with the card's line.
+   Launches count as the ``obs_train`` (B1, B2), ``obs_serve`` (B1, B3)
+   and ``obs_proposals`` (B4) paths.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -1088,6 +1123,7 @@ def train_run(dev, rehearsal: bool, cfg, label: str, steps: int, unmoved: int = 
         raise AssertionError(f"{label}: the ROIAlign backward was never called")
     return {"launches": launches, "step_args": step_args[0], "state": state, "cfg": cfg,
             "s_per_step": wall, "data_stall_ms": stall, "peak_gib": peak,
+            "step_s": [b - a for a, b in zip(times, times[1:])],
             "peak_own_gib": peak - live,
             "lines": [m for _, m, _ in steps_seen]}
 
@@ -4539,6 +4575,461 @@ def runtime_phase(dev, rehearsal: bool, seed: int, phase5: dict) -> dict:
                       "runtime_eval": {"launches": {"roi_align": eval_b1}}}}
 
 
+OBS_STEPS, OBS_PREEMPT_AT, OBS_PROFILE = 10, 4, (2, 5)
+OBS_ROUNDS, OBS_REQUESTS = 4, 16
+
+
+def http_get(port: int, path: str) -> tuple[int, str]:
+    """GET ``path`` from the plane's endpoint on 127.0.0.1."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return r.status, r.read().decode()
+
+
+def read_spans(obs_dir: str) -> list:
+    with open(os.path.join(obs_dir, "spans.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def children_of(spans: list) -> dict:
+    """span_id -> sorted names of its children."""
+    out = {}
+    for s in spans:
+        out.setdefault(s["args"]["parent_id"], []).append(s["name"])
+    return {k: sorted(v) for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def kept_excepthooks():
+    """``train()`` with the plane on chains a crash handler onto the hooks;
+    put the originals back after."""
+    saved = sys.excepthook, threading.excepthook
+    try:
+        yield
+    finally:
+        sys.excepthook, threading.excepthook = saved
+
+
+def obs_train(dev, rehearsal: bool, seed: int, work: str, counters: dict, phase5: dict,
+              problems: list) -> dict:
+    """Phase 7j (a): ten steps through ``train()`` with the plane on, the
+    endpoint on an ephemeral port, a flush every 0.5 s and the profile
+    window over steps 2-4; a real SIGTERM at the step-4 drain, then the
+    resume to 10 into the same obs directory."""
+    import signal
+
+    from mx_rcnn_tpu_torch import obs
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.obs import read_journal
+    from mx_rcnn_tpu_torch.train.loop import train
+    from mx_rcnn_tpu_torch.train.preemption import Preempted
+    from mx_rcnn_tpu_torch.utils.profiling import stage_of
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    cfg = apply_overrides(get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco"),
+                          train_overrides(rehearsal, seed) + [
+                              "train.checkpoint_every=1000", "obs.enabled=true",
+                              "obs.metrics_port=0", "obs.flush_s=0.5"])
+    variables = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+    obs_dir = os.path.join(work, cfg.name, "obs")
+    prof_dir = os.path.join(work, "profile")
+    lines, left, per_step, scraped, sent = [], [], [], {}, []
+
+    def on_line(line):
+        m = json.loads(line)
+        lines.append((time.perf_counter(), m))
+        per_step.append({k: fn.launches for k, fn in counters.items()})
+        for fn in counters.values():
+            fn.launches = 0
+        if m["step"] == 1:
+            port = obs.metrics_port()
+            t = time.perf_counter()
+            scraped.update({p: http_get(port, p) for p in ("/metrics", "/healthz")})
+            scraped["ms"] = 1e3 * (time.perf_counter() - t)
+        if m["step"] == OBS_PREEMPT_AT and not sent:
+            sent.append(time.perf_counter())
+            os.kill(os.getpid(), signal.SIGTERM)
+        left.append(time.perf_counter())
+
+    kw = dict(steps=OBS_STEPS, device=dev, variables=variables, log=on_line, workdir=work,
+              profile_dir=prof_dir, profile_steps=OBS_PROFILE)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with kept_excepthooks():
+        try:
+            train(cfg, **kw)
+            problems.append("(a): the SIGTERM did not preempt the run")
+        except Preempted as e:
+            if e.step != OBS_PREEMPT_AT:
+                problems.append(f"(a): preempted at {e.step}")
+        split = len(lines)
+        train(cfg, resume=True, **kw)
+    wall = time.perf_counter() - t0
+    obs.close()
+
+    recs = read_journal(os.path.join(obs_dir, "journal.jsonl"))
+    kinds = [(r["kind"], (r.get("payload") or {}).get("step")) for r in recs
+             if r["kind"] != "metrics_flush"]
+    want = [("configured", None), ("checkpoint_saved", 0), ("preempt_drain", 4),
+            ("checkpoint_saved", 4), ("flight_dump", None), ("configured", None),
+            ("checkpoint_restored", 4), ("checkpoint_saved", OBS_STEPS)]
+    flushes = sum(r["kind"] == "metrics_flush" for r in recs)
+    if kinds != want or flushes < 1:
+        problems.append(f"(a): journal {kinds}, {flushes} metrics_flush (want {want}, >= 1)")
+    spans = read_spans(obs_dir)
+    kids = children_of(spans)
+    steps = [s for s in spans if s["name"] == "train_step"]
+    if sorted(s["args"]["step"] for s in steps) != list(range(OBS_STEPS)) or any(
+            kids.get(s["args"]["span_id"]) != ["data", "step"] for s in steps):
+        problems.append(f"(a): train_step spans {[s['args'] for s in steps]}")
+    dumps = [f for f in os.listdir(obs_dir) if f.startswith("flight_preempt_drain_")]
+    if len(dumps) != 1:
+        problems.append(f"(a): preempt_drain dumps {dumps}")
+    answers = {k: scraped.get(k, (0, ""))[0] for k in ("/metrics", "/healthz")}
+    if answers != {"/metrics": 200, "/healthz": 200} or \
+            "obs_events_total" not in scraped["/metrics"][1]:
+        problems.append(f"(a): endpoint answers {answers}")
+    traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    want_traces = [f"trace_step{OBS_PROFILE[0]}_{os.getpid()}_",
+                   f"trace_step{OBS_PREEMPT_AT}_{os.getpid()}_"]
+    stages, sizes = {}, {}
+    for name in traces:
+        path = os.path.join(prof_dir, name)
+        sizes[name] = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        stages[name] = sorted({stage_of(e["name"]) for e in events
+                               if e.get("cat") == "kernel" and e.get("name")
+                               and stage_of(e["name"]).startswith("B")})
+    if len(traces) != len(want_traces) or not all(
+            t.startswith(w) for t, w in zip(traces, want_traces)):
+        problems.append(f"(a): profile traces {traces} (want {want_traces})")
+    if not rehearsal and any(v != ["B1 roi_align kernel", "B2 roi_align backward kernel"]
+                             for v in stages.values()):
+        problems.append(f"(a): the traces' B kernels {stages}")
+    if len(lines) != OBS_STEPS or not all(finite_line(m) and m["nonfinite"] == 0.0
+                                          for _, m in lines):
+        problems.append(f"(a): {len(lines)} steps, or a non-finite metric")
+    if not rehearsal and any(v < 1 for c in per_step for v in c.values()):
+        problems.append(f"(a): B1 or B2 not launched in a step: {per_step}")
+    # A step's seconds: from the end of the previous line's callback (the
+    # scrape is in the callback) to its line, in its run (drain included,
+    # as phase 5 reads it); traced steps are i = 2..4 (lines 3-5), and the
+    # window's export runs at the top of i=5.  Each untraced step is held
+    # against phase 5's step at the same index in its run (the first of
+    # each run is left out, as phase 5 leaves out its own).
+    dts = {m["step"]: t - left[k - 1] for k, (t, m) in enumerate(lines)
+           if k not in (0, split)}
+    index = {m["step"]: k if k < split else k - split for k, (_, m) in enumerate(lines)}
+    plain = {d: v for d, v in dts.items() if not OBS_PROFILE[0] < d <= OBS_PROFILE[1] + 1}
+    p5 = phase5.get("step_s", [])
+    pairs = {d: (v, p5[index[d] - 1]) for d, v in plain.items() if index[d] - 1 < len(p5)}
+    diff = [v - off for v, off in pairs.values()] or [float("nan")]   # nan: no phase 5 steps
+    span_ms = {s["args"]["step"]: s["dur"] / 1e3 for s in steps}
+    log(f"[obs:train] {cfg.name}{' (rehearsal: cut)' if rehearsal else ''} batch "
+        f"{cfg.train.per_device_batch}, {OBS_STEPS} steps (preempted at {OBS_PREEMPT_AT}, "
+        f"resumed) in {wall:.2f} s (builds, checkpoints and the trace export included); "
+        f"seconds a step by its line {({d: round(v, 4) for d, v in dts.items()})}, "
+        f"untraced {np.mean(list(plain.values())):.4f} over {len(plain)} steps (phase 5, "
+        f"plane off: {phase5['s_per_step']:.4f}); untraced step by line (plane on, phase 5 "
+        f"at the same index in its run) "
+        f"{({d: (round(a, 4), round(b, 4)) for d, (a, b) in pairs.items()})}: paired "
+        f"difference mean {np.mean(diff):+.4f} s, range {min(diff):+.4f} to {max(diff):+.4f}; "
+        f"train_step span ms {({i: round(v, 2) for i, v in sorted(span_ms.items())})}; "
+        f"journal {kinds} + {flushes} metrics_flush; /metrics and /healthz {answers} "
+        f"(both scraped in {scraped.get('ms', float('nan')):.2f} ms); preempt dumps {len(dumps)}; "
+        f"traces {({k: round(v / 2**20, 2) for k, v in sizes.items()})} MiB holding {stages}; "
+        f"launches a step {per_step}; {card_line() if dev.type == 'cuda' else 'cpu'}")
+    launches = {k: sum(c[k] for c in per_step) for k in counters}
+    return {"obs_dir": obs_dir, "launches": launches,
+            "s_per_step": float(np.mean(list(plain.values()))),
+            "paired_diff_s": (float(np.mean(diff)), len(pairs)),
+            "trace_mib": sum(sizes.values()) / 2**20}
+
+
+def obs_serve(dev, rehearsal: bool, seed: int, work: str, counters: dict,
+              problems: list) -> dict:
+    """Phase 7j (b): the ``full`` engine (B1 + B3), warmed by one request
+    of each size, serves 16 requests with spans on and 16 with spans
+    off in each of 4 rounds, one request at a time, the set that goes
+    first alternating by round;
+    a ``proposals``-only engine on ``rpn.nms_impl=pallas`` (B4) serves one
+    with spans on; then ``kill()`` dumps the ring."""
+    from mx_rcnn_tpu_torch import obs
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.serve.engine import DetectorRunner, InferenceEngine, build_engine
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    base = get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco")
+    variables = init_variables(base.model, torch.Generator().manual_seed(seed))
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    images = serve_images(rehearsal, seed)
+    obs_dir = os.path.join(work, "serve_obs")
+    run_id = obs.configure(obs_dir, spans=True)
+    engine = build_engine(apply_overrides(base, ["serve.fused_middle=on", "serve.batch_size=2"]),
+                          variables, device=dev).start()
+    lat, traced, outs = {True: [], False: []}, [], 0
+    for fn in counters.values():
+        fn.launches = 0
+    # Warm the path at each request size (spans off, not timed), so that
+    # neither set pays a first call.
+    obs.configure(obs_dir, run_id=run_id, spans=False)
+    for img in images:
+        engine.submit(img).result(600)
+    rounds = []
+    for r in range(OBS_ROUNDS):
+        first = len(lat[True]), len(lat[False])
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            obs.configure(obs_dir, run_id=run_id, spans=on)
+            for j in range(OBS_REQUESTS):
+                img = images[j % len(images)]
+                t = time.perf_counter()
+                req = engine.submit(img)
+                res = req.result(600)
+                lat[on].append(1e3 * (time.perf_counter() - t))
+                check_response(res, *img.shape[:2])
+                outs += len(res["scores"])
+                if on == (req.span is None):
+                    problems.append(f"(b): spans {'on' if on else 'off'}, span {req.span}")
+                if on:
+                    traced.append(req.span.span_id)
+        rounds.append(float(np.median(lat[True][first[0]:]) - np.median(lat[False][first[1]:])))
+    full_launches = {k: fn.launches for k, fn in counters.items()}
+
+    obs.configure(obs_dir, run_id=run_id, spans=True)
+    runner = DetectorRunner(apply_overrides(base, ["model.rpn.nms_impl=pallas"]), variables,
+                            batch_size=1, device=dev)
+    levels = _Levels(runner)
+    levels.only = ("proposals",)
+    with InferenceEngine(levels, pack=False) as prop:
+        for fn in counters.values():
+            fn.launches = 0
+        req = prop.submit(images[0])
+        res = req.result(600)
+        prop_launches = {k: fn.launches for k, fn in counters.items()}
+    check_response(res, *images[0].shape[:2])
+    traced.append(req.span.span_id)
+    if res["level"] != "proposals" or (res["classes"] != 0).any():
+        problems.append(f"(b): proposals served at {res['level']}")
+
+    engine.kill("chip_smoke: phase 7j kill")
+    engine.stop()
+    obs.close()
+    dumps = sorted(f for f in os.listdir(obs_dir) if f.startswith("flight_engine_killed_"))
+    in_dump = set()
+    for name in dumps:
+        with open(os.path.join(obs_dir, name)) as f:
+            in_dump |= {e["args"]["span_id"] for e in json.load(f)["entries"]
+                        if e.get("type") == "span" and e.get("name") == "engine_request"}
+    spans = read_spans(obs_dir)
+    kids = children_of(spans)
+    reqs = [s for s in spans if s["name"] == "engine_request"]
+    devices = [s["args"] for s in spans if s["name"] == "device"]
+    if sorted(s["args"]["span_id"] for s in reqs) != sorted(traced) or any(
+            kids.get(s["args"]["span_id"]) != ["device", "queue"] for s in reqs):
+        problems.append(f"(b): {len(reqs)} engine_request spans for {len(traced)} traced "
+                        f"requests, or one without its queue and device children")
+    if sorted({d["level"] for d in devices}) != ["full", "proposals"]:
+        problems.append(f"(b): device span levels {sorted({d['level'] for d in devices})}")
+    if len(dumps) != 1 or not set(traced) <= in_dump:
+        problems.append(f"(b): kill dumps {dumps}, holding {len(set(traced) & in_dump)} of the "
+                        f"{len(traced)} traced requests")
+    if not rehearsal and (min(full_launches["roi_align"], full_launches["fused_middle"]) < 1
+                          or prop_launches["nms"] != 1):
+        problems.append(f"(b): launches full {full_launches}, proposals {prop_launches}")
+    pct = {on: (float(np.percentile(v, 50)), float(np.percentile(v, 99)))
+           for on, v in lat.items()}
+    log(f"[obs:serve] {base.name} full (B1 + B3), batch 2: {len(images)} warm-up requests, "
+        f"then {OBS_ROUNDS} rounds of {OBS_REQUESTS} requests with spans on and "
+        f"{OBS_REQUESTS} off, one at a time; ms a "
+        f"request p50/p99 spans on {pct[True][0]:.2f}/{pct[True][1]:.2f}, off "
+        f"{pct[False][0]:.2f}/{pct[False][1]:.2f}; p50 on less off by round (on first in "
+        f"rounds 1 and 3) {[round(d, 2) for d in rounds]}; {outs} detections; {len(reqs)} traced "
+        f"requests (one at proposals: B4 launches {prop_launches['nms']}), all in the kill's "
+        f"dump: {set(traced) <= in_dump}; launches full {full_launches}; "
+        f"{card_line() if dev.type == 'cuda' else 'cpu'}")
+    return {"obs_dir": obs_dir, "full": full_launches, "proposals": prop_launches,
+            "p50_p99_ms": pct, "round_p50_diff_ms": rounds}
+
+
+def obs_report(obs_dir: str, want: str, problems: list) -> list:
+    """Phase 7j (c): ``python -m mx_rcnn_tpu_torch.obs.report`` over one
+    directory; its timeline must hold ``want``."""
+    proc = subprocess.run([sys.executable, "-m", "mx_rcnn_tpu_torch.obs.report", obs_dir],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        problems.append(f"(c): the report exited {proc.returncode}: {proc.stderr[-2000:]}")
+        return []
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(summary["path"]) as f:
+        report = json.load(f)
+    kinds = [e["kind"] for e in report["incident_timeline"]]
+    if want not in kinds:
+        problems.append(f"(c): {want} not in the timeline {kinds}")
+    log(f"[obs:report] {os.path.basename(obs_dir)}: {summary['value']}; timeline {kinds}")
+    return kinds
+
+
+def obs_lockcheck(rehearsal: bool, seed: int, problems: list) -> dict:
+    """Phase 7j (d): ``chip_smoke.py --lockcheck-child`` under
+    ``MX_RCNN_LOCKCHECK=1``: zero violations, the order graph printed."""
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--lockcheck-child",
+           "--seed", str(seed)] + (["--cpu-rehearsal"] if rehearsal else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, MX_RCNN_LOCKCHECK="1"),
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    if proc.returncode != 0:
+        problems.append(f"(d): the child exited {proc.returncode}: {proc.stderr[-3000:]}")
+        return {}
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not got["installed"] or got["violations"] != 0 or not got["graph"] \
+            or got["statusz"] != 200 or got["steps"] != 2 or got["workers"] < 2 \
+            or got["children"] or "proposals" not in got["levels"] \
+            or got["levels"][-4:] != ["failed"] * 3 + ["full_q8"]:
+        problems.append(f"(d): {got}")
+    log(f"[obs:lockcheck] child {time.perf_counter() - t0:.2f} s: sanitizer installed "
+        f"{got['installed']}, violations {got['violations']}; levels served {got['levels']}; "
+        f"/statusz {got['statusz']}; {got['steps']} train steps through {got['workers']} decode "
+        f"workers (each imports the package under the variable); order graph (held -> "
+        f"acquired), {sum(len(v) for v in got['graph'].values())} edges:")
+    for held, acquired in sorted(got["graph"].items()):
+        log(f"  {held} -> {', '.join(acquired)}")
+    return got
+
+
+def lockcheck_child(dev, rehearsal: bool, seed: int) -> int:
+    """The process phase 7j (d) starts under ``MX_RCNN_LOCKCHECK=1``: the
+    engine's ladder (each level, a deadline nothing fits, a swap under load,
+    the kill, the breaker) with the plane configured and its endpoint
+    scraped, then 2 train steps through the input service
+    (``data.num_workers=2``).  Prints one JSON line last."""
+    import multiprocessing as mp
+    import shutil
+
+    from mx_rcnn_tpu_torch import obs
+    from mx_rcnn_tpu_torch.analysis import lockcheck
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+    from mx_rcnn_tpu_torch.data.datasets import build_dataset
+    from mx_rcnn_tpu_torch.data.loader import DetectionLoader
+    from mx_rcnn_tpu_torch.data.roidb import filter_roidb
+    from mx_rcnn_tpu_torch.serve.engine import (
+        DeadlineExceeded,
+        DetectorRunner,
+        InferenceEngine,
+        ServeError,
+    )
+    from mx_rcnn_tpu_torch.train.loop import train
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    base = get_config("tiny_synthetic" if rehearsal else "r50_fpn_coco")
+    work = os.path.join(ROOT, "runs", f"chip_smoke_lockcheck_{os.getpid()}")
+    variables = init_variables(base.model, torch.Generator().manual_seed(seed))
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    images = serve_images(rehearsal, seed)
+    images = [images[i % len(images)] for i in range(4)]
+    served = []
+
+    def level_of(req):
+        try:
+            return req.result(600)["level"]
+        except DeadlineExceeded:
+            return "late"
+
+    try:
+        obs.configure(os.path.join(work, "obs"), metrics_port=0)
+        runner = DetectorRunner(apply_overrides(base, ["serve.fused_middle=on"]), variables,
+                                batch_size=2, int8_head=True, device=dev)
+        levels = _Levels(runner)
+        with InferenceEngine(levels, headroom=4.0) as eng:
+            obs.register_status("engine", eng.stats)
+            for level in reversed(runner.levels()):
+                levels.only = (level,)
+                served += [eng.infer(img)["level"] for img in images[:2]]
+            levels.only = None
+            est = eng.estimates.snapshot()
+            served.append(level_of(eng.submit(images[0], timeout=2.0 * min(est.values()))))
+            reqs = [eng.submit(img) for img in images]
+            swap = threading.Thread(target=eng.swap_weights, args=(variables,))
+            swap.start()
+            reqs += [eng.submit(img) for img in images]
+            swap.join(600)
+            served += [level_of(r) for r in reqs]
+            status = http_get(obs.metrics_port(), "/statusz")[0]
+            eng.kill("chip_smoke: lockcheck kill")
+        with InferenceEngine(_FailsFullQuality(runner), pack=False) as eng:
+            for img in images[:3]:
+                try:
+                    eng.infer(img)
+                except ServeError:
+                    served.append("failed")
+            served.append(eng.infer(images[3])["level"])
+        cfg = apply_overrides(base, train_overrides(rehearsal, seed) + ["data.num_workers=2"])
+        loader = DetectionLoader(filter_roidb(build_dataset(cfg.data, train=True).roidb()),
+                                 cfg.data, cfg.train.per_device_batch, dev, seed=seed)
+        lines = []
+        train(cfg, steps=2, device=dev, log=lines.append, loader=loader)
+        hellos = [h for run in loader.service_runs for h in run["hellos"]]
+    finally:
+        obs.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"installed": lockcheck.enabled(), "violations": lockcheck.violation_count(),
+                      "graph": lockcheck.order_graph(), "levels": served, "statusz": status,
+                      "steps": len(lines), "workers": len(hellos),
+                      "children": len(mp.active_children())}), flush=True)
+    return 0
+
+
+def obs_phase(dev, rehearsal: bool, seed: int, phase5: dict) -> dict:
+    """Phase 7j: the configured observability plane on ``r50_fpn_coco`` at
+    full width (800x1344, batch 2, compact RPN loss, the mixed policy,
+    random weights from the seed): (a) :func:`obs_train`, (b)
+    :func:`obs_serve`, (c) :func:`obs_report` over (a)'s and (b)'s
+    directories, (d) :func:`obs_lockcheck`."""
+    import shutil
+
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import (
+        multilevel_roi_align_bwd_cuda,
+        multilevel_roi_align_cuda,
+    )
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "runs", f"chip_smoke_obs_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    problems = []
+    try:
+        a = obs_train(dev, rehearsal, seed, work,
+                      {"roi_align": multilevel_roi_align_cuda,
+                       "roi_align_bwd": multilevel_roi_align_bwd_cuda}, phase5, problems)
+        b = obs_serve(dev, rehearsal, seed, work,
+                      {"roi_align": multilevel_roi_align_cuda,
+                       "fused_middle": fused_middle_levels, "nms": nms_mask_cuda}, problems)
+        obs_report(a["obs_dir"], "preempt_drain", problems)
+        obs_report(b["obs_dir"], "engine_killed", problems)
+        obs_lockcheck(rehearsal, seed, problems)
+        log(f"[obs] phase 7j {time.perf_counter() - t_phase:.2f} s; train {a['s_per_step']:.4f} "
+            f"s a step untraced with the plane on (phase 5: {phase5['s_per_step']:.4f}; paired "
+            f"by index, mean difference {a['paired_diff_s'][0]:+.4f} s over "
+            f"{a['paired_diff_s'][1]} steps); serve ms p50/p99 spans on "
+            f"{b['p50_p99_ms'][True]}, off {b['p50_p99_ms'][False]}, p50 on less off by round "
+            f"{[round(d, 2) for d in b['round_p50_diff_ms']]}; "
+            f"profile traces {a['trace_mib']:.2f} MiB; "
+            f"{card_line() if dev.type == 'cuda' else 'cpu'}")
+        if problems:
+            raise AssertionError(f"obs: {problems}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"paths": {"obs_train": {"launches": a["launches"]},
+                      "obs_serve": {"launches": b["full"]},
+                      "obs_proposals": {"launches": b["proposals"]}}}
+
+
 FAST_PATHS = {"roi_align": ("fast_alt", "fast_ingraph", "fast_pipe"),
               "roi_align_bwd": ("fast_alt", "fast_ingraph"),
               "fused_middle": ("fast_alt", "fast_ingraph"), "nms": ("fast_pipe",)}
@@ -4550,24 +5041,27 @@ LADDER_PATHS = {"roi_align": ("ladder",), "fused_middle": ("ladder",),
 FORMS_PATHS = ("forms_accum", "forms")
 EVALX_PATHS = ("evalx_sharded", "evalx_mask", "evalx_demo")
 RUNTIME_PATHS = {"roi_align": ("runtime", "runtime_eval"), "roi_align_bwd": ("runtime",)}
+OBS_PATHS = {"roi_align": ("obs_train", "obs_serve"), "roi_align_bwd": ("obs_train",),
+             "fused_middle": ("obs_serve",), "nms": ("obs_proposals",)}
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
                   ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval",
                    *FAST_PATHS["roi_align"], *MASK_PATHS["roi_align"],
                    *LADDER_PATHS["roi_align"], *FORMS_PATHS, *EVALX_PATHS,
-                   *RUNTIME_PATHS["roi_align"])),
+                   *RUNTIME_PATHS["roi_align"], *OBS_PATHS["roi_align"])),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                       "mx_rcnn_tpu/ops/pallas/roi_align.py:623",
                       ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"],
                        *MASK_PATHS["roi_align_bwd"], *FORMS_PATHS,
-                       *RUNTIME_PATHS["roi_align_bwd"])),
+                       *RUNTIME_PATHS["roi_align_bwd"], *OBS_PATHS["roi_align_bwd"])),
     "fused_middle": ("mx_rcnn_tpu_torch/csrc/middle.cu",
                      "mx_rcnn_tpu/ops/pallas/middle.py:145",
                      ("full", "c4_full", *FAST_PATHS["fused_middle"],
-                      *MASK_PATHS["fused_middle"], *LADDER_PATHS["fused_middle"])),
+                      *MASK_PATHS["fused_middle"], *LADDER_PATHS["fused_middle"],
+                      *OBS_PATHS["fused_middle"])),
     "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75",
             ("proposals", "c4_proposals", *FAST_PATHS["nms"], *MASK_PATHS["nms"],
-             *LADDER_PATHS["nms"])),
+             *LADDER_PATHS["nms"], *OBS_PATHS["nms"])),
 }
 # Phase c4's entries: the same kernels at the single-level C4 shapes,
 # counted over phase c4's paths alone.
@@ -4696,6 +5190,8 @@ def main() -> int:
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="tiny shapes on the CPU through the plain versions; never prints ok")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lockcheck-child", action="store_true",
+                    help="phase 7j (d)'s child: run under MX_RCNN_LOCKCHECK=1 by the smoke")
     ap.add_argument("--parent", default=None,
                     help="another tree (e.g. the parent commit from git archive): hold B1, "
                          "B2, B3 and B4 bitwise against its kernels and time each in turns")
@@ -4723,6 +5219,8 @@ def main() -> int:
     log(f"[card] {card}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.lockcheck_child:
+        return lockcheck_child(dev, args.cpu_rehearsal, args.seed)
 
     if not args.cpu_rehearsal:
         t0 = time.perf_counter()
@@ -4764,6 +5262,7 @@ def main() -> int:
     evalx = evalx_phase(dev, args.cpu_rehearsal, args.seed, paths["train"], paths["eval"])
     paths.update(evalx["paths"])
     paths.update(runtime_phase(dev, args.cpu_rehearsal, args.seed, paths["train"])["paths"])
+    paths.update(obs_phase(dev, args.cpu_rehearsal, args.seed, paths["train"])["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)

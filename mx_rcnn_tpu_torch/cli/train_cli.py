@@ -17,7 +17,12 @@ flight, checkpoint and exit with code 75 (requeue with ``--resume``).
 ``--proposals PKL`` trains on that proposal pkl's boxes (``eval_cli
 --proposals --proposals-split train``) instead of the RPN's; with ``--set
 model.rpn.loss_weight=0`` the RPN leaves the graph (Fast R-CNN mode, the
-reference's ``train_rcnn.py``).  ``--device`` defaults to the card;
+reference's ``train_rcnn.py``).  ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of steps 10-15 into DIR.  ``--set
+obs.enabled=true`` turns on the observability plane (journal, spans and
+flight dumps under ``<workdir>/<config name>/obs``; ``--set
+obs.metrics_port=0`` adds a ``/metrics`` endpoint on an ephemeral port of
+127.0.0.1).  ``--device`` defaults to the card;
 without one it raises rather than fall back to the CPU (``--device cpu``
 asks for the CPU).
 """
@@ -35,9 +40,7 @@ log = logging.getLogger("mx_rcnn_tpu_torch")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="Not ported: --profile (a traced window of steps).")
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_config_args(p)
     p.add_argument("--steps", type=int, default=None,
                    help="train steps (default: the schedule's total_steps)")
@@ -48,6 +51,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="fail (instead of warn) when the resumed config drifts from the "
                         "workdir's recorded config.json")
     p.add_argument("--no-eval", action="store_true", help="skip the final evaluation pass")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of steps 10-15 to DIR")
     p.add_argument("--pretrained", default=None, metavar="PTH",
                    help="torchvision-layout ResNet or VGG-16 .pth to seed the backbone")
     p.add_argument("--proposals", default=None, metavar="PKL",
@@ -69,7 +74,8 @@ def main(argv=None) -> dict:
 
     state = train(cfg, steps=args.steps, device=args.device, workdir=cfg.workdir,
                   resume=args.resume, pretrained=args.pretrained,
-                  strict_resume=args.strict_resume, proposals_path=args.proposals)
+                  strict_resume=args.strict_resume, proposals_path=args.proposals,
+                  profile_dir=args.profile)
     metrics: dict = {"final_step": state.step}
     if not args.no_eval:
         from mx_rcnn_tpu_torch.cli.eval_cli import run_eval

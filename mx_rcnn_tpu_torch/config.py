@@ -8,8 +8,8 @@ layout such as ``spatial_partition`` and ``bucket_mb``, TPU layout rewrites such
 ``packed_head``/``fold_frozen_bn``, speed-only knobs such as
 ``assign_block``/``topk_block``/``roi_block``/``topk_impl`` whose forms
 are bit-identical to the dense or stable ones the port computes, the
-observability and fleet planes) are left out; the port always executes
-the canonical forms.
+control, deploy and fabric planes) are left out; the port always executes
+the canonical forms.  ``ObsConfig`` is JAX's, field for field.
 
 Two backend knobs keep their JAX-side values so a config reads the same in
 both packages: ``"pallas"`` selects the port's hand-written CUDA kernel
@@ -303,12 +303,38 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class ObsConfig:
+    """The observability plane (obs/): typed journal, metrics registry and
+    /metrics endpoint, span tracing, flight recorder.  All host-side: none
+    of these knobs changes what runs on the card."""
+
+    # Master switch for the DURABLE surfaces (journal/spans/flight files
+    # under <workdir>/<name>/obs).  Off, events still derive their log
+    # lines and feed the in-memory flight ring: no filesystem traffic.
+    enabled: bool = False
+    # Override the artifact directory ("" = <workdir>/<name>/obs).
+    dir: str = ""
+    # /metrics + /healthz + /statusz HTTP port on 127.0.0.1: -1 = no
+    # endpoint, 0 = ephemeral (logged and readable via obs.metrics_port()).
+    metrics_port: int = -1
+    # Per-step train spans + per-request serving spans -> spans.jsonl
+    # (Chrome-trace lines; obs/report.py wraps them loadable).
+    spans: bool = True
+    # Flight-recorder ring size (most recent events and spans kept for the
+    # postmortem dump).
+    flight_size: int = 512
+    # Seconds between metrics_flush journal events (0 = only at close).
+    flush_s: float = 0.0
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "faster_rcnn_r50_fpn_coco"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
     workdir: str = "runs"
 
 

@@ -25,9 +25,11 @@ behaviours of the JAX engine, on one device:
 The engine is generic over a ``runner`` (``buckets``, ``batch_size``,
 ``levels()``, ``pick_bucket``, ``smaller_bucket``, ``warmup``, ``run``);
 :class:`DetectorRunner` is the real one, and tests drive the same engine
-with fakes.  The observability plane runs unconfigured
-(``obs/__init__.py``): events and metrics are counted in-process, events
-land in the flight ring, and no span or flight dump is written.
+with fakes.  With the observability plane configured (``obs.configure``)
+each request records an ``engine_request`` span with its ``queue`` and
+``device`` children, and ``kill`` and the watchdog's death dump the flight
+ring; unconfigured, events and metrics are counted in-process and events
+land in the flight ring.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and with
 no card they raise rather than fall back to the CPU.  Tests pass
@@ -111,7 +113,8 @@ class InferenceRequest:
     """A submitted request; ``result()`` blocks until served or failed."""
 
     __slots__ = ("image", "enqueued_at", "deadline", "_event", "_result",
-                 "_error", "plan", "_callbacks", "_cb_lock", "tenant")
+                 "_error", "plan", "_callbacks", "_cb_lock",
+                 "trace_id", "span", "queue_span", "tenant")
 
     def __init__(self, image: np.ndarray, enqueued_at: float,
                  deadline: Optional[float]) -> None:
@@ -127,6 +130,13 @@ class InferenceRequest:
         self.plan: Optional[Plan] = None
         self._callbacks: list[Callable[["InferenceRequest"], None]] = []
         self._cb_lock = threading.Lock()
+        # Tracing state (obs/tracing.py): set by submit() when span
+        # recording is on; _finish() closes whatever is still open, so
+        # every completion path (served, shed, deadline, engine death)
+        # ends the request's span tree exactly once.
+        self.trace_id: Optional[str] = None
+        self.span = None
+        self.queue_span = None
 
     def _set_result(self, result: dict) -> None:
         self._result = result
@@ -137,6 +147,12 @@ class InferenceRequest:
         self._finish()
 
     def _finish(self) -> None:
+        if self.queue_span is not None:
+            self.queue_span.end()
+        if self.span is not None:
+            if self._error is not None:
+                self.span.set(error=type(self._error).__name__)
+            self.span.end()
         self._event.set()
         with self._cb_lock:
             cbs, self._callbacks = self._callbacks, []
@@ -642,9 +658,10 @@ class InferenceEngine:
 
     def kill(self, reason: str = "killed") -> None:
         """Hard-fail the engine: DEAD now, every in-flight and queued
-        request fails with a typed error."""
+        request fails with a typed error; the flight ring is dumped."""
         self.health.transition(health_mod.DEAD, reason)
         obs.emit("serve", "engine_killed", {"reason": reason}, logger=log)
+        obs.flight_dump("engine_killed", {"replica": self.replica_id, "reason": reason})
         error = EngineUnavailable(f"engine died: {reason}")
         with self._lock:
             stuck = list(self._inflight_reqs)
@@ -670,12 +687,16 @@ class InferenceEngine:
 
     def submit(
         self, image: np.ndarray, timeout: Optional[float] = None,
+        trace_id: Optional[str] = None,
+        parent_span_id: Optional[str] = None,
         tenant: Optional[str] = None,
     ) -> InferenceRequest:
         """Enqueue one (H, W, 3) image; returns at once.  Raises
         :class:`Overloaded` when the queue is full, :class:`QuotaExceeded`
         when the tenancy policy refuses the tenant, and
-        :class:`EngineUnavailable` when the engine cannot serve."""
+        :class:`EngineUnavailable` when the engine cannot serve.
+        ``trace_id``/``parent_span_id`` link the request's spans under a
+        caller's trace."""
         if not self._started:
             raise EngineUnavailable("engine not started")
         if self._draining or self._stopping:
@@ -700,6 +721,14 @@ class InferenceEngine:
         timeout = self.default_timeout if timeout is None else timeout
         req = InferenceRequest(image, now, None if timeout is None else now + timeout)
         req.tenant = tenant
+        req.trace_id = trace_id
+        if obs.spans_enabled():
+            req.span = obs.span(
+                "engine_request", subsystem="serve", trace_id=trace_id,
+                parent_id=parent_span_id, attrs=dict(self._mlabels),
+            )
+            req.trace_id = req.span.trace_id
+            req.queue_span = req.span.child("queue")
         try:
             self._queue.put_nowait(req)
         except queue_mod.Full:
@@ -712,6 +741,10 @@ class InferenceEngine:
                 "queue_depth": self._queue.qsize(),
                 "max_queue": self._queue.maxsize,
             }, logger=log)
+            if req.queue_span is not None:
+                req.queue_span.end()
+            if req.span is not None:
+                req.span.end(error="Overloaded")
             raise Overloaded(
                 f"queue full ({self._queue.maxsize} waiting); request shed"
             ) from None
@@ -816,6 +849,8 @@ class InferenceEngine:
                 self._expire(first)
                 continue
             first.plan = self._plan(first)
+            if first.queue_span is not None:
+                first.queue_span.end(level=first.plan.level)
             batch = [first]
             while len(batch) < self.runner.batch_size:
                 try:
@@ -832,6 +867,8 @@ class InferenceEngine:
                     nxt._set_error(DeadlineExceeded("deadline passed while queued"))
                     continue
                 nxt.plan = self._plan(nxt)
+                if nxt.queue_span is not None:
+                    nxt.queue_span.end(level=nxt.plan.level)
                 if nxt.plan[1:] != first.plan[1:]:
                     self._carry = nxt  # another program; runs next
                     break
@@ -854,6 +891,8 @@ class InferenceEngine:
             self._expire(item)
             return True
         item.plan = self._plan(item)
+        if item.queue_span is not None:
+            item.queue_span.end(level=item.plan.level)
         self._buf.add(item)
         return True
 
@@ -919,12 +958,21 @@ class InferenceEngine:
                 self._inflight_since = start
                 self._inflight_plan = plan
                 self._inflight_reqs = list(batch)
+            dspan = None
+            if batch[0].span is not None:
+                dspan = batch[0].span.child("device", attrs={
+                    "level": plan.level, "bucket": list(plan.bucket), "batch": len(batch),
+                })
             try:
                 results = self.runner.run(plan.mode, plan.bucket, [r.image for r in batch])
                 err: Optional[BaseException] = None
             except BaseException as e:  # noqa: BLE001 - typed below
                 results, err = None, e
             finally:
+                if dspan is not None:
+                    if err is not None:
+                        dspan.set(error=type(err).__name__)
+                    dspan.end()
                 with self._lock:
                     self._inflight_since = None
                     self._inflight_plan = None
@@ -1030,6 +1078,8 @@ class InferenceEngine:
                 "reason": self.health.reason,
                 "queued": self._queue.qsize(),
             }, logger=log)
+            obs.flight_dump(
+                "engine_dead", {"replica": self.replica_id, "reason": self.health.reason})
             error = EngineUnavailable(f"engine died: {self.health.reason}")
             with self._lock:
                 stuck = list(self._inflight_reqs)

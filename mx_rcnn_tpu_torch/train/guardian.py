@@ -13,6 +13,11 @@
   :class:`TrainingDiverged` stops the run loudly.
 * **Loss-spike warning**: an interval mean loss far above the trailing
   window's mean (a z-score) is logged, without a rollback.
+
+Each decision is a typed event of the observability plane
+(``guardian_rollback``, ``guardian_loss_spike``, ``training_diverged``),
+journaled when the plane is configured; a divergence also dumps the
+flight ring before it raises.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import logging
 import math
 from dataclasses import dataclass
 from typing import Optional
+
+from mx_rcnn_tpu_torch import obs
 
 log = logging.getLogger("mx_rcnn_tpu_torch")
 
@@ -72,15 +79,19 @@ class Guardian:
         if reason is not None:
             self.rollbacks += 1
             if self.rollbacks > self.max_rollbacks:
-                log.error("training diverged at step %d (%s) after %d rollbacks", step, reason,
-                          self.max_rollbacks)
+                obs.emit("train", "training_diverged", {
+                    "step": step, "reason": reason, "rollbacks": self.max_rollbacks,
+                }, logger=log)
+                obs.flight_dump("training_diverged")
                 raise TrainingDiverged(
                     f"non-finite training metrics at step {step} ({reason}) after "
                     f"{self.max_rollbacks} rollback retr"
                     f"{'y' if self.max_rollbacks == 1 else 'ies'}: the divergence is not "
                     "data-local; lower the lr or inspect the model")
-            log.warning("guardian rollback at step %d (%s), attempt %d of %d", step, reason,
-                        self.rollbacks, self.max_rollbacks)
+            obs.emit("train", "guardian_rollback", {
+                "step": step, "reason": reason, "attempt": self.rollbacks,
+                "max_attempts": self.max_rollbacks,
+            }, logger=log)
             return Rollback(step, reason, self.rollbacks)
         self._note_loss(step, means)
         return None
@@ -94,6 +105,8 @@ class Guardian:
             mean = sum(self._losses) / n
             std = math.sqrt(sum((x - mean) ** 2 for x in self._losses) / n)
             if std > 0.0 and (loss - mean) / std > self.spike_zscore:
-                log.warning("guardian: loss spike at step %d: %.4f is %.1f sigma above the "
-                            "trailing mean %.4f", step, loss, (loss - mean) / std, mean)
+                obs.emit("train", "guardian_loss_spike", {
+                    "step": step, "loss": float(loss), "sigma": (loss - mean) / std,
+                    "mean": mean,
+                }, logger=log)
         self._losses.append(float(loss))

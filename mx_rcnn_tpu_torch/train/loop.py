@@ -1,6 +1,6 @@
 """Build and run the single-device trainer (port of
-``mx_rcnn_tpu/train/loop.py``, without the mesh, the execution plan,
-the observability plane, the profile window and the transfer guard).
+``mx_rcnn_tpu/train/loop.py``, without the mesh, the execution plan and
+the transfer guard).
 
 :func:`build_all` makes the model (random weights from ``train.seed``,
 the given ``state_dict``, and a torchvision ResNet or VGG-16 ``.pth``
@@ -29,7 +29,12 @@ tolerance: ``resume`` restores the newest finite checkpoint and skips the
 batches it consumed; SIGTERM/SIGINT drain, checkpoint and raise
 ``Preempted``; non-finite metrics roll back to the last finite
 checkpoint and skip the offending data, ``train.guardian_rollbacks``
-times, then raise ``TrainingDiverged``.
+times, then raise ``TrainingDiverged``.  With ``obs.enabled`` the
+observability plane journals the run's events (checkpoints, restores,
+rollbacks, the preemption), writes one ``train_step`` span a call of the
+step function and the flight dumps under ``<workdir>/<name>/obs``
+(``obs.dir``); ``profile_dir`` traces a window of steps with
+``torch.profiler``.
 
 Runs on the card: ``device=None`` means ``"cuda"``, and with no card it
 raises rather than fall back to the CPU.
@@ -46,6 +51,7 @@ from typing import Callable, Optional
 
 import torch
 
+from mx_rcnn_tpu_torch import obs
 from mx_rcnn_tpu_torch.config import Config, ScheduleConfig
 from mx_rcnn_tpu_torch.data.datasets import build_dataset
 from mx_rcnn_tpu_torch.data.loader import DetectionLoader, load_proposals
@@ -66,6 +72,7 @@ from mx_rcnn_tpu_torch.train.optim import SGDMomentum, frozen_mask, make_schedul
 from mx_rcnn_tpu_torch.train.preemption import Preempted, PreemptionGuard
 from mx_rcnn_tpu_torch.train.state import TrainState
 from mx_rcnn_tpu_torch.utils.device import resolve_device
+from mx_rcnn_tpu_torch.utils.profiling import ProfileWindow
 from mx_rcnn_tpu_torch.utils.precision import policy_of
 from mx_rcnn_tpu_torch.weights import init_variables
 
@@ -198,7 +205,9 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
           workdir: Optional[str] = None, resume: bool = False,
           pretrained: Optional[str] = None, strict_resume: bool = False,
           loader: Optional[DetectionLoader] = None, extra_freeze: tuple[str, ...] = (),
-          proposals_path: Optional[str] = None, host_depth: int = 1) -> TrainState:
+          proposals_path: Optional[str] = None, host_depth: int = 1,
+          profile_dir: Optional[str] = None,
+          profile_steps: tuple[int, int] = (10, 15)) -> TrainState:
     """Train up to step ``steps`` (default: the schedule's total) and
     return the final state.
 
@@ -231,7 +240,21 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
     in ``Batch.ext_rois``; with ``rpn.loss_weight`` 0 that is Fast R-CNN
     mode, the RPN out of the graph.  ``variables`` from an earlier phase
     continue it: its parameters and FrozenBN buffers, a fresh optimizer,
-    step 0 and the schedule restarted."""
+    step 0 and the schedule restarted.  ``profile_dir``: a
+    ``torch.profiler`` Chrome trace of steps ``profile_steps`` [start,
+    stop) into it (``utils/profiling.py::ProfileWindow``; the window's
+    ends round up to the stride of ``train.steps_per_call``).
+
+    With ``cfg.obs.enabled`` the plane is configured first (``obs.dir``,
+    default ``<workdir>/<name>/obs``; the ``/metrics`` endpoint on
+    ``obs.metrics_port`` when it is not -1) and the crash handler
+    installed; it stays configured after the run, as in the JAX package."""
+    if cfg.obs.enabled:
+        obs.configure(
+            cfg.obs.dir or f"{workdir or cfg.workdir}/{cfg.name}/obs",
+            metrics_port=cfg.obs.metrics_port if cfg.obs.metrics_port >= 0 else None,
+            spans=cfg.obs.spans, flight_size=cfg.obs.flight_size, flush_s=cfg.obs.flush_s)
+        obs.install_crash_handler()
     _, _, state, step_fn, global_batch = build_all(cfg, device, variables, pretrained,
                                                    extra_freeze)
     dev = next(state.model.parameters()).device
@@ -243,6 +266,7 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
     if resume and latest_step(ckpt_dir) is not None:
         # Walks back past a truncated, corrupt or non-finite newest step.
         restore_checkpoint(ckpt_dir, state, validate=finite_state)
+        obs.emit("train", "checkpoint_restored", {"step": state.step}, logger=logger)
         logger.info("resumed from %s at step %d", ckpt_dir, state.step)
         _warn_config_drift(cfg, f"{run_dir}/config.json", strict=strict_resume)
     if loader is None:
@@ -273,6 +297,7 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
             # A rollback or resume inside the first checkpoint interval
             # returns here rather than aborting.
             save_checkpoint(ckpt_dir, state)
+            obs.emit("train", "checkpoint_saved", {"step": state.step}, logger=logger)
 
     stall = PrefetchStats()
 
@@ -286,6 +311,12 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
 
     guardian = Guardian(max_rollbacks=cfg.train.guardian_rollbacks if workdir else 0,
                         spike_zscore=cfg.train.guardian_spike_z)
+    # The window's ends round UP to the loop's stride, so that it opens
+    # when i advances k at a time and (10, 15) still skips the first step.
+    p0, p1 = profile_steps
+    p0 += -p0 % k
+    p1 = max(p1 + (-p1 % k), p0 + k)
+    profiler = ProfileWindow(profile_dir, p0, p1)
     speedo = Speedometer(global_batch)
     pending: list[dict] = []
     last_drain = start
@@ -296,7 +327,22 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
     try:
         with PreemptionGuard() as preempt:
             while i < steps:
-                state, metrics = step_fn(state, next(it))
+                profiler.step(i, sync=dev)
+                tspan = (obs.span("train_step", subsystem="train", attrs={"step": i})
+                         if obs.spans_enabled() else None)
+                if tspan is None:
+                    state, metrics = step_fn(state, next(it))
+                else:
+                    # "data" is the wait for the next batch past the
+                    # prefetch buffer; "step" the call of the step function.
+                    # On the card that call waits for the device wherever
+                    # the step syncs the host (the plain NMS fixed point),
+                    # so it is not JAX's asynchronous dispatch alone.
+                    with tspan.child("data"):
+                        batch = next(it)
+                    with tspan.child("step"):
+                        state, metrics = step_fn(state, batch)
+                    tspan.end()
                 pending.append(metrics)
                 done = i + k
                 at_log = done % cfg.train.log_every < k or i == start
@@ -319,6 +365,10 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
                         it = data_iter(restored, data_skip)
                         writer.truncate(restored)
                         speedo = Speedometer(global_batch)
+                        obs.emit("train", "rollback_restored", {
+                            "restored_step": restored, "skipped": done - restored,
+                            "total_skipped": data_skip,
+                        }, logger=logger)
                         last_drain = i = restored
                         continue
                     last_good = done
@@ -331,16 +381,24 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
                                                 if name != "nonfinite"})
                     if at_ckpt:
                         save_checkpoint(ckpt_dir, state)
+                        obs.emit("train", "checkpoint_saved", {"step": done}, logger=logger)
                 if preempt.triggered:
                     # Drained: persist synchronously and exit resumable.
+                    obs.emit("train", "preempt_drain", {"step": done}, logger=logger)
                     if workdir:
                         save_checkpoint(ckpt_dir, state)
+                        obs.emit("train", "checkpoint_saved", {"step": done}, logger=logger)
+                    obs.flight_dump("preempt_drain")
                     raise Preempted(done, ckpt_dir if workdir else None)
                 i = done
     finally:
         it.close()
+        # A run that ends inside the window (a preemption, a raise) stops
+        # the trace here, once.
+        profiler.close(sync=dev)
         if writer:
             writer.close()
     if workdir:
         save_checkpoint(ckpt_dir, state)
+        obs.emit("train", "checkpoint_saved", {"step": steps}, logger=logger)
     return state

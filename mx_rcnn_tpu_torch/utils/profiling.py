@@ -1,12 +1,26 @@
-"""Device-time breakdowns from ``torch.profiler`` traces, for the
-profile entry points (``serve/profile.py``, ``train/profile.py``)."""
+"""Tracing and profiling on ``torch.profiler``.
+
+:func:`trace` and :class:`ProfileWindow` are the port of
+``mx_rcnn_tpu/utils/profiling.py``'s hooks (``jax.profiler`` there): they
+write a Chrome trace (host ops, and the card's kernels when a GPU is
+present) of a block or of a window of train steps into a directory, loadable
+in Perfetto beside ``obs/report.py``'s span trace.  The rest gives the
+device-time breakdowns of the profile entry points (``serve/profile.py``,
+``train/profile.py``)."""
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import logging
+import os
 import subprocess
 import time
+from typing import Iterator, Optional
 
 import torch
+
+log = logging.getLogger("mx_rcnn_tpu_torch")
 
 # Kernel-name fragments -> stage; the first match wins.
 _STAGES = (
@@ -34,6 +48,89 @@ _STAGES = (
     ("Memset", "other copies"),
     ("copy", "dtype casts and copies"),
 )
+
+
+def _activities() -> list:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+def _sync(device) -> None:
+    """Wait for the card's queued work (JAX's ``block_until_ready``)."""
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# One number a trace in this process, so that a second trace with the
+# same tag (a window reopened after a rollback, a second block) is a new
+# file, as each start of JAX's profiler is a new run directory.
+_exports = itertools.count()
+
+
+def _export(prof, logdir: str, tag: str) -> None:
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace_{tag}_{os.getpid()}_{next(_exports)}.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]) -> Iterator[None]:
+    """Host (and, with a GPU present, kernel) trace of the enclosed block
+    into ``logdir/trace_block_<pid>_<n>.json`` (no-op when logdir is None);
+    the current card's queued work is waited for before the trace stops."""
+    if not logdir:
+        yield
+        return
+    prof = torch.profiler.profile(activities=_activities())
+    prof.start()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        _export(prof, logdir, "block")
+
+
+class ProfileWindow:
+    """Trace a [start, stop) step interval of a training loop into
+    ``logdir/trace_step<first traced step>_<pid>_<n>.json``.
+
+    Robust to resume (entering the loop mid-window starts the trace on the
+    first step inside it) and to runs that end inside the window (the loop
+    calls :meth:`close` on exit; an active trace is stopped exactly once).
+    ``sync`` is the loop's device: its queued work is waited for at both
+    ends, so that the window holds whole steps.  With a GPU present the
+    trace records its kernels too."""
+
+    def __init__(self, logdir: Optional[str], start: int, stop: int) -> None:
+        self.logdir = logdir
+        self.start = start
+        self.stop = stop
+        self._prof = None
+        self._first = None
+
+    def step(self, i: int, sync=None) -> None:
+        """Call at the top of loop step ``i``."""
+        if not self.logdir:
+            return
+        if self._prof is None and self.start <= i < self.stop:
+            _sync(sync)
+            self._prof = torch.profiler.profile(activities=_activities())
+            self._prof.start()
+            self._first = i
+        elif self._prof is not None and i >= self.stop:
+            self.close(sync)
+
+    def close(self, sync=None) -> None:
+        if self._prof is not None:
+            prof, self._prof = self._prof, None
+            _sync(sync)
+            prof.stop()
+            _export(prof, self.logdir, f"step{self._first}")
 
 
 def card_line() -> str:

@@ -462,11 +462,12 @@ def test_the_engine_has_the_jax_signatures():
     for ours, theirs in ((TEng.InferenceEngine.__init__, JEng.InferenceEngine.__init__),
                          (TEng.build_engine, JEng.build_engine),
                          (TEng.InferenceEngine.stop, JEng.InferenceEngine.stop),
-                         (TEng.InferenceEngine.swap_weights, JEng.InferenceEngine.swap_weights)):
+                         (TEng.InferenceEngine.swap_weights, JEng.InferenceEngine.swap_weights),
+                         (TEng.InferenceEngine.submit, JEng.InferenceEngine.submit)):
         assert list(inspect.signature(ours).parameters) == \
             list(inspect.signature(theirs).parameters), ours.__qualname__
     sub = list(inspect.signature(TEng.InferenceEngine.submit).parameters)
-    assert sub == ["self", "image", "timeout", "tenant"]
+    assert sub == ["self", "image", "timeout", "trace_id", "parent_span_id", "tenant"]
     assert "mode" not in inspect.signature(TEng.build_engine).parameters
 
 

@@ -439,7 +439,7 @@ def test_guardian_rolls_back_and_skips_the_window(tmp_path, monkeypatch, caplog)
     with caplog.at_level(logging.WARNING, logger="mx_rcnn_tpu_torch"):
         state = L.train(cfg, steps=6, device="cpu", log=lambda line: None, workdir=work,
                         loader=loader)
-    assert any("guardian rollback at step 4" in r.getMessage() for r in caplog.records)
+    assert any("at step 4 — rolling back" in r.getMessage() for r in caplog.records)
     # Poisoned in step 3, caught at the step-4 drain, rolled back to step 2;
     # the retried steps 3-6 take batches 4-7: batches 2-3 are skipped.
     assert skips == [0, 4]
