@@ -303,6 +303,36 @@ when every phase passed):
    traces' size and the phase's seconds printed with the card's line.
    Launches count as the ``obs_train`` (B1, B2), ``obs_serve`` (B1, B3)
    and ``obs_proposals`` (B4) paths.
+7k. The serving fleet and its control loop (:func:`fleet_phase`),
+   ``r50_fpn_coco`` at full width (800x1344, 1000 proposals, random weights
+   from the seed, classes 1-4 favoured), ``build_fleet`` of 2 replicas on
+   the one card with ``serve.fused_middle=on``, one request a call, the
+   result cache on, two tenants, on COCO-sized landscape and portrait noise
+   requests that never share a cache key: (a) 16 requests routed at once,
+   each bitwise a single runner's on the same weights, both replicas
+   serving; a second fleet with ``rpn.nms_impl=pallas`` (B4) walks one
+   replica's ladder with deadlines under ``full``'s and ``reduced``'s
+   estimates down to ``proposals``, bitwise a runner of its config; (b)
+   ``kill_replica(1)`` under load: quarantined, rebuilt, READY again, the
+   seconds printed, no accepted request failed, the killed engine's worker
+   gone and the allocated memory back to its level before the kill; (c)
+   replica 0's runner wedged, ``hedge_after="auto"``: the hedge on replica 1
+   answers, the delay and the seconds printed; (d) ``swap_weights`` to the
+   weights of seed + 1 under load: no failed request, each response bitwise
+   its generation's single runner, the roll's seconds printed; (e) one
+   image ten times: coalesced followers and cache hits, every answer the
+   leader's; (f) ``build_controller`` and a tenant-scoped SLO engine with
+   a ``QuotaGovernor``, every 0.2 s: a burst drives ``add_replica`` (a
+   third engine on the card) and the quiet after it ``retire_replica`` of
+   that one; tenant a's requests with deadlines nothing meets raise the
+   availability burn alert and tighten tenant a alone, healthy traffic
+   clears it and restores a; (g) ``drain()``, no fleet thread left.  B1 and
+   B3 on (a)'s last call and B4 on the second fleet's last ``proposals``
+   call held against their plain versions and timed as in phase 3: the
+   ``kernels`` line's ``@fleet`` entries.  Then (b)-(f) once more in
+   ``chip_smoke.py --fleet-lockcheck-child`` under ``MX_RCNN_LOCKCHECK=1``:
+   zero violations.  Launches count as the ``fleet`` (B1, B3: (a) and
+   (b)-(f)) and ``fleet_proposals`` (B1, B4) paths.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -5030,6 +5060,659 @@ def obs_phase(dev, rehearsal: bool, seed: int, phase5: dict) -> dict:
                       "obs_proposals": {"launches": b["proposals"]}}}
 
 
+# Phase 7k: the serving fleet and its control loop on r50_fpn_coco.
+FLEET_CONFIG = "r50_fpn_coco"
+FLEET_TABLE = "a:weight=1,rate=400,burst=400;b:weight=1,rate=400,burst=400"
+FLEET_WAIT = 120.0
+
+
+def fleet_cfg(rehearsal: bool, *extra: str):
+    """``r50_fpn_coco`` served one request a call with ``serve.fused_middle=on``,
+    a result cache, two tenants and the controller's knobs of phase 7k
+    (a 0.2 s period, 2-3 replicas, burn windows of 1 and 2 s)."""
+    from mx_rcnn_tpu_torch.config import apply_overrides, get_config
+
+    return apply_overrides(get_config(FLEET_CONFIG), [
+        *c4_overrides(rehearsal), "serve.fused_middle=on", "serve.batch_size=1",
+        "serve.result_cache_capacity=64", "serve.tenancy.enabled=true",
+        f"serve.tenancy.table={FLEET_TABLE}", "ctrl.period_s=0.2", "ctrl.min_replicas=2",
+        "ctrl.max_replicas=3", "ctrl.load_high=4", "ctrl.load_low=0.5", "ctrl.down_dwell=2",
+        "ctrl.up_cooldown_s=1", "ctrl.down_cooldown_s=1", "ctrl.burn_fast_s=1",
+        "ctrl.burn_slow_s=2", *extra])
+
+
+class FleetImages:
+    """Request ``i``: float32 noise at a COCO size, landscape and portrait
+    in turn, whose first pixel carries ``i``, so that no two requests share
+    a result-cache key; rebuilt from ``i`` when an oracle needs it."""
+
+    def __init__(self, rehearsal: bool, seed: int) -> None:
+        sizes = ([(120, 160), (160, 120), (107, 160), (160, 107)] if rehearsal
+                 else [(480, 640), (640, 480), (427, 640), (640, 427)])
+        rng = np.random.RandomState(seed + 11)
+        self.bases = [rng.uniform(0, 255, (h, w, 3)).astype(np.float32) for h, w in sizes]
+        self.count = itertools.count()
+
+    def __call__(self, i: int) -> np.ndarray:
+        img = self.bases[i % len(self.bases)].copy()
+        img[0, 0] = (i % 251, i // 251 % 251, 7)
+        return img
+
+
+class FleetLoad:
+    """A client thread that keeps ``depth`` requests in flight on ``fleet``,
+    each a fresh image of ``images``, until :meth:`stop`.  ``accepted``
+    holds (i, request) of every submit that returned, ``refused`` the error
+    names of those that raised (then it waits 10 ms)."""
+
+    def __init__(self, fleet, images: FleetImages, depth: int, tenant=None,
+                 timeout: float = FLEET_WAIT) -> None:
+        self.fleet, self.images, self.depth = fleet, images, depth
+        self.tenant, self.timeout = tenant, timeout
+        self.accepted, self.refused = [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="fleet-load", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        from collections import deque
+
+        from mx_rcnn_tpu_torch.serve.engine import ServeError
+
+        pending = deque()
+        while not self._stop.is_set():
+            while pending and pending[0].done():
+                pending.popleft()
+            if len(pending) >= self.depth:
+                pending[0].wait(0.05)
+                continue
+            i = next(self.images.count)
+            try:
+                req = self.fleet.submit(self.images(i), timeout=self.timeout, tenant=self.tenant)
+            except ServeError as e:
+                self.refused.append(type(e).__name__)
+                time.sleep(0.01)
+                continue
+            self.accepted.append((i, req))
+            pending.append(req)
+
+    def halt(self) -> None:
+        """Stop submitting, waiting for nothing (a failed step's cleanup)."""
+        self._stop.set()
+
+    def done(self) -> int:
+        return sum(1 for _, r in list(self.accepted) if r.done())
+
+    def wait_done(self, n: int, timeout: float = FLEET_WAIT) -> None:
+        wait_for(lambda: self.done() >= n, timeout, f"fleet load: {n} requests not done")
+
+    def stop(self, timeout: float = FLEET_WAIT) -> list:
+        """Stop submitting and wait for every accepted request: (i, result),
+        or (i, error name) for a failed one."""
+        self._stop.set()
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise AssertionError("fleet load: the client did not stop")
+        out = []
+        for i, req in self.accepted:
+            if not req.wait(timeout):
+                raise AssertionError(f"fleet load: request {i} never completed")
+            try:
+                out.append((i, req.result(0)))
+            except Exception as e:  # noqa: BLE001 - reported by name
+                out.append((i, type(e).__name__))
+        return out
+
+
+def wait_for(cond, timeout: float, what: str) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(what)
+        time.sleep(0.01)
+
+
+class _Wedged(_Delegate):
+    """Holds every call until ``gate`` is set (``entered`` says one is held):
+    a replica whose device call does not come back."""
+
+    def __init__(self, runner) -> None:
+        super().__init__(runner)
+        self.entered, self.gate = threading.Event(), threading.Event()
+
+    def run(self, mode, bucket, images):
+        self.entered.set()
+        self.gate.wait(FLEET_WAIT)
+        return self.runner.run(mode, bucket, images)
+
+
+def fleet_failed(results: list) -> list:
+    return [(i, r) for i, r in results if isinstance(r, str)]
+
+
+def fleet_oracle(counters: dict, oracle, images: FleetImages, results: list) -> list:
+    """The (i, response) pairs of ``results`` that are not bitwise
+    ``oracle``'s (a runner of the fleet's config on the weights of the
+    response's generation) on image ``i``, at the response's level; not
+    counted.  None as ``oracle`` checks nothing."""
+    from mx_rcnn_tpu_torch.serve.engine import level_program
+
+    if oracle is None:
+        return []
+    bad = []
+    with uncounted(counters):
+        for i, res in results:
+            img = images(i)
+            mode, bucket = level_program(oracle, res["level"],
+                                         oracle.pick_bucket(*img.shape[:2]))
+            if not same_result(res, oracle.run(mode, bucket, [img])[0]):
+                bad.append((i, res["level"], res["generation"]))
+    return bad
+
+
+def fleet_route(fleet, images: FleetImages, counters: dict, oracle, store: dict) -> dict:
+    """Phase 7k (a): 16 requests routed at once, the ROIAlign and
+    fused-middle inputs of the last call kept in ``store``: every response
+    at ``full``, finite and inside its image, with detections, and bitwise
+    the single runner's on the same weights; both replicas served."""
+    from mx_rcnn_tpu_torch.ops.cuda import middle as middle_mod
+
+    every = lambda size, levels: True   # noqa: E731
+    store["pool"] = []
+    idx = [next(images.count) for _ in range(16)]
+    t0 = time.perf_counter()
+    with captured_pool(store["pool"], every), \
+            captured(middle_mod, ("_launch", "fused_middle_levels_plain"), keep_last(store)):
+        reqs = [fleet.submit(images(i), timeout=FLEET_WAIT) for i in idx]
+        results = [(i, r.result(FLEET_WAIT)) for i, r in zip(idx, reqs)]
+    wall = time.perf_counter() - t0
+    for i, res in results:
+        check_response(res, *images(i).shape[:2])
+    rids = sorted({res["replica_id"] for _, res in results})
+    levels = {res["level"] for _, res in results}
+    bad = fleet_oracle(counters, oracle, images, results)
+    counts = [len(res["scores"]) for _, res in results]
+    log(f"[fleet:route] 16 requests in {wall:.3f} s over replicas {rids}, levels {sorted(levels)}; "
+        f"detections {counts}; bitwise the single runner's: {not bad}")
+    if rids != [0, 1] or levels != {"full"} or bad or min(counts) == 0:
+        raise AssertionError(f"fleet route: replicas {rids}, levels {levels}, differ {bad}")
+    return {"wall_s": wall, "bitwise": not bad}
+
+
+def fleet_proposals(dev, rehearsal: bool, seed: int, variables, images: FleetImages,
+                    counters: dict, nms_store: dict) -> dict:
+    """Phase 7k (a), the ladder's bottom: a second fleet of two replicas
+    whose programs run ``rpn.nms_impl=pallas`` with the fused middle off
+    (B4, as phase 7f's second runner), headroom 4.  Four requests without a
+    deadline warm both replicas' ``full`` estimates; then, one at a time
+    (each lands on replica 0), a deadline of 3x ``full``'s estimate (served
+    at ``reduced``), 3x the least of ``full``'s and ``reduced``'s
+    (``proposals``) and 3x the least estimate (nothing fits: ``proposals``),
+    the B4 inputs of the last kept in ``nms_store``.  Every response
+    bitwise a runner of that config; the launches counted from 0."""
+    from mx_rcnn_tpu_torch.ops.cuda import nms as nms_mod
+    from mx_rcnn_tpu_torch.serve.engine import DetectorRunner
+    from mx_rcnn_tpu_torch.serve.fleet import build_fleet
+
+    cfg = fleet_cfg(rehearsal, "serve.fused_middle=inherit", "model.rpn.nms_impl=pallas",
+                    "serve.result_cache_capacity=0")
+    t0 = time.perf_counter()
+    fleet = build_fleet(cfg, variables, n_replicas=2, device=dev, supervisor_poll=0.05,
+                        engine_kwargs={"headroom": 4.0})
+    oracle = DetectorRunner(cfg, variables, batch_size=1, device=dev)
+    oracle.warmup()
+    try:
+        fleet.start()
+        warm_s = time.perf_counter() - t0
+        for fn in counters.values():
+            fn.launches = 0
+        idx = [next(images.count) for _ in range(4)]
+        reqs = [fleet.submit(images(i), timeout=FLEET_WAIT) for i in idx]
+        results = [(i, r.result(FLEET_WAIT)) for i, r in zip(idx, reqs)]
+        est = lambda: fleet.stats()["replica"][0]["engine"]["latency_estimates_s"]  # noqa: E731
+        ladder = []
+        for pick in (lambda e: e["full"], lambda e: min(e["full"], e["reduced"]),
+                     lambda e: min(e.values())):
+            deadline = 3.0 * pick(est())
+            i = next(images.count)
+            with captured(nms_mod, ("nms_keep_sorted_cuda",), keep_last(nms_store)):
+                res = fleet.submit(images(i), timeout=deadline).result(FLEET_WAIT)
+            results.append((i, res))
+            ladder.append((round(1e3 * deadline, 2), res["level"], res["replica_id"]))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        clean = fleet.drain(timeout=FLEET_WAIT)
+    finally:
+        fleet.stop()
+    for i, res in results:
+        check_response(res, *images(i).shape[:2])
+    bad = fleet_oracle(counters, oracle, images, results)
+    log(f"[fleet:proposals] rpn.nms_impl=pallas fleet warmed in {warm_s:.1f} s; deadlines ms, "
+        f"level, replica {ladder}; bitwise a single runner's: {not bad}; drained {clean}; "
+        f"launches {launches}")
+    if [lv for _, lv, _ in ladder] != ["reduced", "proposals", "proposals"] or bad or not clean:
+        raise AssertionError(f"fleet proposals: {ladder}, differ {bad}, drained {clean}")
+    if (results[-1][1]["classes"] != 0).any():
+        raise AssertionError("fleet proposals: a proposal of a class other than 0")
+    if dev.type == "cuda" and min(launches["nms"], launches["roi_align"]) < 1:
+        raise AssertionError(f"fleet proposals: B4 or B1 never launched ({launches})")
+    return {"launches": launches, "ladder": ladder}
+
+
+def fleet_kill(dev, fleet, images: FleetImages, weight_bytes: int, rehearsal: bool) -> dict:
+    """Phase 7k (b): ``kill_replica(1)`` under a load of 4 in flight:
+    quarantine, rebuild, reinstate; no accepted request fails; the killed
+    engine's worker exits and, on the card, the allocated memory comes back
+    to its level before the kill (a leaked runner would hold its weights)."""
+    import gc
+
+    gc.collect()   # what earlier steps left for the cycle collector goes first
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    before = fleet.stats()
+    old = fleet._replicas[1].engine
+    load = FleetLoad(fleet, images, depth=4)
+    try:
+        load.wait_done(4 if rehearsal else 8)
+        t0 = time.monotonic()
+        fleet.kill_replica(1, "chip_smoke: kill under load")
+        wait_for(lambda: fleet.stats()["reinstatements"] > before["reinstatements"]
+                 and fleet.stats()["replica"][1]["state"] == "ready", FLEET_WAIT,
+                 "fleet kill: replica 1 not reinstated")
+        ready_s = time.monotonic() - t0
+        load.wait_done(load.done() + (2 if rehearsal else 8))
+        results = load.stop()
+    finally:
+        load.halt()
+    old._worker.join(FLEET_WAIT)
+    exited = not old._worker.is_alive()
+    del old
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    after = fleet.stats()
+    failed = fleet_failed(results)
+    quarantines = after["quarantines"] - before["quarantines"]
+    log(f"[fleet:kill] {len(results)} requests under load, replica 1 killed: quarantined "
+        f"{quarantines}, rebuilt and READY {ready_s:.3f} s after the kill; failed {failed}; "
+        f"retries {after['retries'] - before['retries']}; the killed engine's worker exited: "
+        f"{exited}; allocated {m0 / 2**20:.1f} MiB before the kill, {m1 / 2**20:.1f} after "
+        f"(weights {weight_bytes / 2**20:.1f} MiB)")
+    if failed or quarantines != 1 or not exited or m1 - m0 > weight_bytes / 2:
+        raise AssertionError(f"fleet kill: failed {failed}, quarantines {quarantines}, "
+                             f"worker exited {exited}, memory {m0} -> {m1}")
+    return {"kill_to_ready_s": ready_s, "requests": len(results), "mem_mib": (m0 / 2**20,
+                                                                             m1 / 2**20)}
+
+
+def fleet_hedge(fleet, images: FleetImages) -> dict:
+    """Phase 7k (c): replica 0's runner wedged (its call held), hedging on
+    ``"auto"``: one request lands on replica 0, its hedge on replica 1
+    answers, the straggler's late result is dropped."""
+    from mx_rcnn_tpu_torch.serve.router import auto_hedge_delay
+
+    eng = fleet._replicas[0].engine
+    wedge = _Wedged(eng.runner)
+    before = fleet.stats()
+    delay = auto_hedge_delay(before["replica"][0]["engine"]["latency_estimates_s"])
+    fleet.hedge_after = "auto"
+    eng.runner = wedge
+    try:
+        t0 = time.monotonic()
+        res = fleet.submit(images(next(images.count)), timeout=FLEET_WAIT).result(FLEET_WAIT)
+        answer_s = time.monotonic() - t0
+    finally:
+        wedge.gate.set()
+        eng.runner = wedge.runner
+        fleet.hedge_after = None
+    wait_for(lambda: fleet.pending == 0, FLEET_WAIT, "fleet hedge: the straggler never settled")
+    after = fleet.stats()
+    got = {k: after[k] - before[k] for k in ("hedges", "hedge_wins", "completed", "failed")}
+    log(f"[fleet:hedge] hedge_after auto = {delay:.4f} s (3x replica 0's full estimate); the "
+        f"wedged replica held the request, the hedge on replica {res['replica_id']} answered "
+        f"in {answer_s:.3f} s; {got}")
+    if not wedge.entered.is_set() or res["replica_id"] != 1 or \
+            got != {"hedges": 1, "hedge_wins": 1, "completed": 1, "failed": 0}:
+        raise AssertionError(f"fleet hedge: replica {res['replica_id']}, {got}")
+    return {"hedge_after_s": delay, "answer_s": answer_s}
+
+
+def fleet_swap(fleet, images: FleetImages, new_variables, counters: dict, oracle,
+               rehearsal: bool) -> dict:
+    """Phase 7k (d): ``swap_weights`` to the second tree under a load of 4
+    in flight: no failed request; every response's generation the old or
+    the new one, both served, and each bitwise the single runner's on that
+    generation's weights."""
+    gen0 = fleet.generation
+    load = FleetLoad(fleet, images, depth=4)
+    try:
+        load.wait_done(4 if rehearsal else 8)
+        t0 = time.perf_counter()
+        gen = fleet.swap_weights(new_variables)
+        roll_s = time.perf_counter() - t0
+        load.wait_done(load.done() + (2 if rehearsal else 8))
+        results = load.stop()
+    finally:
+        load.halt()
+    failed = fleet_failed(results)
+    served = [(i, r) for i, r in results if not isinstance(r, str)]
+    gens = [r["generation"] for _, r in served]
+    bad = fleet_oracle(counters, oracle, images, [(i, r) for i, r in served
+                                                  if r["generation"] == gen0])
+    if oracle is not None:
+        with uncounted(counters):
+            oracle.swap_weights(new_variables, generation=gen)
+    bad += fleet_oracle(counters, oracle, images, [(i, r) for i, r in served
+                                                   if r["generation"] == gen])
+    log(f"[fleet:swap] {len(results)} requests under load, rolled to generation {gen} in "
+        f"{roll_s:.3f} s over {len(fleet.stats()['replica'])} replicas; failed {failed}; "
+        f"generations {gens.count(gen0)} x {gen0}, {gens.count(gen)} x {gen}; each bitwise its "
+        f"generation's single runner: {not bad if oracle is not None else 'not checked'}")
+    if failed or bad or set(gens) != {gen0, gen} or gen != gen0 + 1:
+        raise AssertionError(f"fleet swap: failed {failed}, gens {set(gens)}, differ {bad}")
+    return {"roll_s": roll_s, "requests": len(results)}
+
+
+def fleet_cache(fleet, images: FleetImages, counters: dict, oracle) -> dict:
+    """Phase 7k (e): one image six times at once (a leader and followers
+    that coalesce onto its call), then four times more (cache hits): every
+    answer the leader's, bitwise, and the leader the single runner's."""
+    i = next(images.count)
+    img = images(i)
+    before = fleet.stats()["cache"]
+    leader = fleet.submit(img, timeout=FLEET_WAIT)
+    rest = [fleet.submit(img, timeout=FLEET_WAIT) for _ in range(5)]
+    first = leader.result(FLEET_WAIT)
+    got = [r.result(FLEET_WAIT) for r in rest]
+    got += [fleet.submit(img, timeout=FLEET_WAIT).result(FLEET_WAIT) for _ in range(4)]
+    after = fleet.stats()["cache"]
+    hits, coalesced = after["hits"] - before["hits"], after["coalesced"] - before["coalesced"]
+    same = all(same_result(r, first) for r in got)
+    bad = fleet_oracle(counters, oracle, images, [(i, first)])
+    log(f"[fleet:cache] one image ten times: {coalesced} followers coalesced onto the leader's "
+        f"call, {hits} cache hits; every answer the leader's: {same}; the leader the single "
+        f"runner's: {not bad if oracle is not None else 'not checked'}; cache {after}")
+    if not same or bad or coalesced < 1 or hits + coalesced != 9:
+        raise AssertionError(f"fleet cache: hits {hits}, coalesced {coalesced}, same {same}")
+    return {"hits": hits, "coalesced": coalesced}
+
+
+def fleet_control(fleet, cfg, policy, images: FleetImages, rehearsal: bool) -> dict:
+    """Phase 7k (f): ``build_controller`` and a tenant-scoped SLO engine
+    whose alerts drive a ``QuotaGovernor``, all evaluated every
+    ``ctrl.period_s`` (0.2 s).  A burst of 24 in flight (tenant b; 12 on
+    the rehearsal) must
+    drive an ``add_replica`` (a third engine on the card) and the quiet
+    after it a ``retire_replica`` of that replica; then tenant a's requests
+    with deadlines nothing meets (the injected failure window) beside
+    tenant b's healthy ones must raise the availability burn alert and
+    tighten tenant a alone, and healthy traffic must clear it and restore
+    tenant a.  No accepted request of a healthy load fails."""
+    from mx_rcnn_tpu_torch.ctrl import SLOEngine, build_controller, tenant_slos
+    from mx_rcnn_tpu_torch.serve.tenancy import QuotaGovernor
+
+    ctrl = cfg.ctrl
+    slo, scaler = build_controller(cfg, fleet)
+    governor = QuotaGovernor(policy)
+    tslo = SLOEngine(tenant_slos(ctrl, ("a", "b")), fast_s=ctrl.burn_fast_s,
+                     slow_s=ctrl.burn_slow_s, burn_factor=ctrl.burn_factor,
+                     on_alert=governor.on_alert)
+    t0 = time.monotonic()
+    stamp = {}
+    healthy, loads = [], []
+    before = fleet.stats()
+
+    def load(**kw) -> FleetLoad:
+        loads.append(FleetLoad(fleet, images, **kw))
+        return loads[-1]
+
+    def routable():
+        return sorted(r["rid"] for r in fleet.stats()["replica"]
+                      if r["state"] in ("ready", "degraded"))
+
+    def alerted(engine, name, event):
+        return any(a["slo"] == name and a["event"] == event for a in list(engine.alerts))
+
+    try:
+        for loop in (slo, tslo, scaler):
+            loop.start(ctrl.period_s)
+        burst = load(depth=12 if rehearsal else 24, tenant="b")
+        wait_for(lambda: any(d["action"] == "up" for d in scaler.resize_timeline()), 60,
+                 "fleet control: no scale-up under the burst")
+        stamp["up"] = time.monotonic() - t0
+        healthy += burst.stop()
+        wait_for(lambda: len(routable()) == 3, FLEET_WAIT, "fleet control: the added replica "
+                 "never reached rotation")
+        stamp["added_ready"] = time.monotonic() - t0
+        wait_for(lambda: any(d["action"] == "down" for d in scaler.resize_timeline())
+                 and len(fleet.stats()["replica"]) == 2, 60,
+                 "fleet control: no scale-down in the quiet spell")
+        stamp["down"] = time.monotonic() - t0
+        good = load(depth=2, tenant="b")
+        bad = load(depth=1, tenant="a", timeout=1e-4)
+        wait_for(lambda: alerted(slo, "availability", "start")
+                 and ("tighten", "a") in governor.actions, 60,
+                 "fleet control: no availability burn alert in the failure window")
+        stamp["burn_start"] = time.monotonic() - t0
+        injected = bad.stop()
+        recovered = load(depth=1, tenant="a")
+        wait_for(lambda: alerted(slo, "availability", "stop")
+                 and ("restore", "a") in governor.actions, 60,
+                 "fleet control: the availability burn alert never cleared")
+        stamp["burn_stop"] = time.monotonic() - t0
+        healthy += good.stop() + recovered.stop()
+    finally:
+        for running in loads:
+            running.halt()
+        scaler.stop()
+        slo.stop()
+        tslo.stop()
+    decisions = [(d["action"], d.get("replica")) for d in scaler.resize_timeline()]
+    alerts = [(a["slo"], a["event"]) for a in slo.alerts]
+    talerts = [(a["slo"], a["event"]) for a in tslo.alerts]
+    after = fleet.stats()
+    failed = fleet_failed(healthy)
+    log(f"[fleet:control] period {ctrl.period_s} s; seconds from the start: "
+        f"{ {k: round(v, 2) for k, v in stamp.items()} }; resizes {decisions} (added "
+        f"{after['added'] - before['added']}, retired {after['retired'] - before['retired']}); "
+        f"burn alerts {alerts}; tenant alerts {talerts}; governor {governor.actions}; "
+        f"injected failures {len(bad.refused)} refused + "
+        f"{len(fleet_failed(injected))} failed; healthy requests {len(healthy)}, failed {failed}")
+    added = [r for a, r in decisions if a == "up"]
+    if failed or decisions[:1] != [("up", added[0])] or ("down", added[0]) not in decisions \
+            or governor.actions != [("tighten", "a"), ("restore", "a")] \
+            or ("availability[b]", "start") in talerts:
+        raise AssertionError(f"fleet control: {decisions}, {governor.actions}, {talerts}, "
+                             f"failed {failed}")
+    return {"seconds": stamp, "decisions": decisions, "alerts": alerts,
+            "governor": governor.actions}
+
+
+def fleet_drills(dev, rehearsal: bool, seed: int, fleet, cfg, policy, images: FleetImages,
+                 counters: dict, oracle) -> dict:
+    """Phase 7k (b)-(f) on a started fleet (the phase's, or the lockcheck
+    child's with no ``oracle``)."""
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    new = init_variables(cfg.model, torch.Generator().manual_seed(seed + 1))
+    new["box_head.cls_score.bias"][1:5] = 4.0
+    weight_bytes = sum(t.numel() * t.element_size() for t in new.values())
+    return {"kill": fleet_kill(dev, fleet, images, weight_bytes, rehearsal),
+            "hedge": fleet_hedge(fleet, images),
+            "swap": fleet_swap(fleet, images, new, counters, oracle, rehearsal),
+            "cache": fleet_cache(fleet, images, counters, oracle),
+            "control": fleet_control(fleet, cfg, policy, images, rehearsal)}
+
+
+FLEET_THREADS = ("fleet-", "serve-worker", "serve-watchdog")
+
+
+def fleet_threads() -> list:
+    return [t.name for t in threading.enumerate() if t.name.startswith(FLEET_THREADS)]
+
+
+def fleet_start(dev, rehearsal: bool, seed: int):
+    """The phase's fleet: ``build_fleet`` of 2 replicas on ``dev``, started,
+    with its config, weights and shared tenancy policy."""
+    from mx_rcnn_tpu_torch.serve.fleet import build_fleet
+    from mx_rcnn_tpu_torch.serve.tenancy import TenancyPolicy
+    from mx_rcnn_tpu_torch.weights import init_variables
+
+    cfg = fleet_cfg(rehearsal)
+    variables = init_variables(cfg.model, torch.Generator().manual_seed(seed))
+    variables["box_head.cls_score.bias"][1:5] = 4.0
+    policy = TenancyPolicy.from_config(cfg.serve.tenancy)
+    t0 = time.perf_counter()
+    fleet = build_fleet(cfg, variables, n_replicas=2, device=dev, tenancy=policy,
+                        supervisor_poll=0.05)
+    fleet.start()
+    return fleet, cfg, variables, policy, time.perf_counter() - t0
+
+
+def fleet_lockcheck(rehearsal: bool, seed: int) -> dict:
+    """Phase 7k's sanitized run: ``chip_smoke.py --fleet-lockcheck-child``
+    under ``MX_RCNN_LOCKCHECK=1`` runs (b)-(f) on a fleet of its own: zero
+    violations."""
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--fleet-lockcheck-child",
+           "--seed", str(seed)] + (["--cpu-rehearsal"] if rehearsal else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, MX_RCNN_LOCKCHECK="1"),
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"fleet lockcheck: the child exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[fleet:lockcheck] child {time.perf_counter() - t0:.2f} s: sanitizer installed "
+        f"{got['installed']}, violations {got['violations']}, threads left {got['threads']}; "
+        f"order graph (held -> acquired), {sum(len(v) for v in got['graph'].values())} edges:")
+    for held, acquired in sorted(got["graph"].items()):
+        log(f"  {held} -> {', '.join(acquired)}")
+    if not got["installed"] or got["violations"] != 0 or got["threads"] or not got["drained"]:
+        raise AssertionError(f"fleet lockcheck: {got}")
+    return got
+
+
+def fleet_lockcheck_child(dev, rehearsal: bool, seed: int) -> int:
+    """The process phase 7k starts under ``MX_RCNN_LOCKCHECK=1``: a fleet of
+    its own through (b)-(f), then ``drain()``.  Prints one JSON line last."""
+    from mx_rcnn_tpu_torch.analysis import lockcheck
+
+    if rehearsal:
+        torch.set_num_threads(2)   # as the phase's own fleet
+    fleet, cfg, _, policy, _ = fleet_start(dev, rehearsal, seed)
+    try:
+        fleet_drills(dev, rehearsal, seed, fleet, cfg, policy, FleetImages(rehearsal, seed),
+                     {}, None)
+        drained = fleet.drain(timeout=FLEET_WAIT)
+    finally:
+        fleet.stop()
+    if fleet_threads():
+        time.sleep(0.2)   # a request's watcher leaves just after its latch
+    print(json.dumps({"installed": lockcheck.enabled(), "violations": lockcheck.violation_count(),
+                      "graph": lockcheck.order_graph(), "drained": drained,
+                      "threads": fleet_threads()}), flush=True)
+    return 0
+
+
+def fleet_kernels(dev, rehearsal: bool, cfg, store: dict, nms_store: dict,
+                  chunk_us: dict) -> dict:
+    """Phase 7k's kernels at the fleet's shapes: B1 (bf16 within one ulp,
+    f32 bitwise) and B3 (bitwise) on (a)'s last call, B4 (bitwise) on the
+    last ``proposals`` call of the ``rpn.nms_impl=pallas`` fleet, each timed
+    as in phase 3: the ``kernels`` line's ``@fleet`` entries."""
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    (pyr, rois), *_ = store["pool"]
+    fwd = {}
+    for dt, case in ((torch.bfloat16, "fleet"), (torch.float32, "f32_fleet")):
+        r = hold_fwd({l: f.to(dt) for l, f in pyr.items()}, rois, cfg.model.rcnn.pooled_size,
+                     cfg.model.rcnn.sampling_ratio, clock, iters, plain_iters)
+        if dt == torch.float32:
+            r["match"] = r["match"] and r["max_abs_err"] == 0.0
+        fwd[case] = r
+        log(f"[kernel:roi_align@fleet:{case}] {r['shape']}: match={r['match']} "
+            f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} kernel_ms={r['kernel_ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f}")
+    middle = store.get("_launch") or store["fused_middle_levels_plain"]
+    found = {"fused_middle": hold_middle(middle[0], chunk_us["fused_middle"], clock, iters,
+                                         plain_iters),
+             "nms": hold_nms(nms_store["nms_keep_sorted_cuda"][0], chunk_us["nms"], clock, iters,
+                             plain_iters)}
+    log_proposal_kernels(found, "fleet")
+    return {"roi_align@fleet": kernel_entry(fwd), "fused_middle@fleet": found["fused_middle"],
+            "nms@fleet": found["nms"]}
+
+
+def fleet_phase(dev, rehearsal: bool, seed: int, chunk_us: dict) -> dict:
+    """Phase 7k: the serving fleet and its control loop on ``r50_fpn_coco``
+    at full width (800x1344, 1000 proposals, random weights from the seed):
+    ``build_fleet`` of 2 replicas on the one card, then (a)
+    :func:`fleet_route` and :func:`fleet_proposals`, (b)-(f)
+    :func:`fleet_drills`, (g) ``drain()``, the kernels at the fleet's shapes
+    (:func:`fleet_kernels`) and (b)-(f) again under the sanitizer
+    (:func:`fleet_lockcheck`).  The ``fleet`` path's launches are (a)'s and
+    (b)-(f)'s, from 0 before each to after it, the added replica's warm-up
+    included and the single runner's references not;
+    ``fleet_proposals``'s are the second fleet's requests."""
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_cuda
+    from mx_rcnn_tpu_torch.serve.engine import DetectorRunner
+
+    t_phase = time.perf_counter()
+    counters = {"roi_align": multilevel_roi_align_cuda, "fused_middle": fused_middle_levels,
+                "nms": nms_mask_cuda}
+    card = card_line() if dev.type == "cuda" else "cpu rehearsal"
+    threads = torch.get_num_threads()
+    if rehearsal:
+        torch.set_num_threads(2)   # a few engines share the host: no oversubscription
+    images = FleetImages(rehearsal, seed)
+    fleet, cfg, variables, policy, warm_s = fleet_start(dev, rehearsal, seed)
+    store, nms_store = {}, {}
+    try:
+        oracle = DetectorRunner(cfg, variables, batch_size=1, device=dev)
+        oracle.warmup()
+        log(f"[fleet] {card}; {FLEET_CONFIG} at {cfg.data.image_size}, "
+            f"{cfg.model.rpn.test_post_nms_top_n} proposals, one request a call: 2 replicas "
+            f"warmed in {warm_s:.1f} s on {sorted({str(r.engine.runner.device) for r in fleet._replicas.values()})}")
+        for fn in counters.values():
+            fn.launches = 0
+        route = fleet_route(fleet, images, counters, oracle, store)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        prop = fleet_proposals(dev, rehearsal, seed, variables, images, counters, nms_store)
+        for fn in counters.values():
+            fn.launches = 0
+        drills = fleet_drills(dev, rehearsal, seed, fleet, cfg, policy, images, counters, oracle)
+        launches = {k: launches[k] + fn.launches for k, fn in counters.items()}
+        clean = fleet.drain(timeout=FLEET_WAIT)
+    finally:
+        fleet.stop()
+    if fleet_threads():
+        time.sleep(0.2)   # a request's watcher leaves just after its latch
+    left = fleet_threads()
+    log(f"[fleet:drain] drained clean {clean}; threads left {left}; fleet launches {launches}")
+    if not clean or left:
+        raise AssertionError(f"fleet drain: clean {clean}, threads left {left}")
+    if dev.type == "cuda" and min(launches["roi_align"], launches["fused_middle"]) < 1:
+        raise AssertionError(f"fleet: B1 or B3 never launched ({launches})")
+    torch.set_num_threads(threads)
+    kernels = fleet_kernels(dev, rehearsal, cfg, store, nms_store, chunk_us)
+    sanitized = fleet_lockcheck(rehearsal, seed)
+    d = drills
+    log(f"[fleet] phase 7k {time.perf_counter() - t_phase:.2f} s: warm {warm_s:.2f} s, kill to "
+        f"ready {d['kill']['kill_to_ready_s']:.3f} s, hedge after {d['hedge']['hedge_after_s']:.4f} "
+        f"s answered in {d['hedge']['answer_s']:.3f} s, roll {d['swap']['roll_s']:.3f} s, cache "
+        f"hits {d['cache']['hits']} coalesced {d['cache']['coalesced']}, control "
+        f"{ {k: round(v, 2) for k, v in d['control']['seconds'].items()} }, sanitized child "
+        f"violations {sanitized['violations']}; {card}")
+    return {"paths": {"fleet": {"launches": launches},
+                      "fleet_proposals": {"launches": prop["launches"]}},
+            "kernels": kernels, "route": route, "drills": drills}
+
+
 FAST_PATHS = {"roi_align": ("fast_alt", "fast_ingraph", "fast_pipe"),
               "roi_align_bwd": ("fast_alt", "fast_ingraph"),
               "fused_middle": ("fast_alt", "fast_ingraph"), "nms": ("fast_pipe",)}
@@ -5043,12 +5726,15 @@ EVALX_PATHS = ("evalx_sharded", "evalx_mask", "evalx_demo")
 RUNTIME_PATHS = {"roi_align": ("runtime", "runtime_eval"), "roi_align_bwd": ("runtime",)}
 OBS_PATHS = {"roi_align": ("obs_train", "obs_serve"), "roi_align_bwd": ("obs_train",),
              "fused_middle": ("obs_serve",), "nms": ("obs_proposals",)}
+FLEET_PATHS = {"roi_align": ("fleet", "fleet_proposals"), "fused_middle": ("fleet",),
+               "nms": ("fleet_proposals",)}
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
                   ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval",
                    *FAST_PATHS["roi_align"], *MASK_PATHS["roi_align"],
                    *LADDER_PATHS["roi_align"], *FORMS_PATHS, *EVALX_PATHS,
-                   *RUNTIME_PATHS["roi_align"], *OBS_PATHS["roi_align"])),
+                   *RUNTIME_PATHS["roi_align"], *OBS_PATHS["roi_align"],
+                   *FLEET_PATHS["roi_align"])),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                       "mx_rcnn_tpu/ops/pallas/roi_align.py:623",
                       ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"],
@@ -5058,10 +5744,10 @@ KERNELS = {
                      "mx_rcnn_tpu/ops/pallas/middle.py:145",
                      ("full", "c4_full", *FAST_PATHS["fused_middle"],
                       *MASK_PATHS["fused_middle"], *LADDER_PATHS["fused_middle"],
-                      *OBS_PATHS["fused_middle"])),
+                      *OBS_PATHS["fused_middle"], *FLEET_PATHS["fused_middle"])),
     "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75",
             ("proposals", "c4_proposals", *FAST_PATHS["nms"], *MASK_PATHS["nms"],
-             *LADDER_PATHS["nms"], *OBS_PATHS["nms"])),
+             *LADDER_PATHS["nms"], *OBS_PATHS["nms"], *FLEET_PATHS["nms"])),
 }
 # Phase c4's entries: the same kernels at the single-level C4 shapes,
 # counted over phase c4's paths alone.
@@ -5086,6 +5772,9 @@ KERNELS.update({f"{k}@small": (*KERNELS[k][:2], on) for k, on in LADDER_PATHS.it
 # accumulated step, counted over the accumulation run alone.
 KERNELS.update({f"{k}@accum": (*KERNELS[k][:2], ("forms_accum",))
                 for k in ("roi_align", "roi_align_bwd")})
+# Phase 7k's entries: B1, B3 and B4 at the fleet's shapes (800x1344, one
+# request a call), counted over phase 7k's paths alone.
+KERNELS.update({f"{k}@fleet": (*KERNELS[k][:2], on) for k, on in FLEET_PATHS.items()})
 
 
 PKG = "mx_rcnn_tpu_torch"
@@ -5192,6 +5881,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lockcheck-child", action="store_true",
                     help="phase 7j (d)'s child: run under MX_RCNN_LOCKCHECK=1 by the smoke")
+    ap.add_argument("--fleet-lockcheck-child", action="store_true",
+                    help="phase 7k's sanitized child: run under MX_RCNN_LOCKCHECK=1 by the smoke")
     ap.add_argument("--parent", default=None,
                     help="another tree (e.g. the parent commit from git archive): hold B1, "
                          "B2, B3 and B4 bitwise against its kernels and time each in turns")
@@ -5221,6 +5912,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.lockcheck_child:
         return lockcheck_child(dev, args.cpu_rehearsal, args.seed)
+    if args.fleet_lockcheck_child:
+        return fleet_lockcheck_child(dev, args.cpu_rehearsal, args.seed)
 
     if not args.cpu_rehearsal:
         t0 = time.perf_counter()
@@ -5263,6 +5956,8 @@ def main() -> int:
     paths.update(evalx["paths"])
     paths.update(runtime_phase(dev, args.cpu_rehearsal, args.seed, paths["train"])["paths"])
     paths.update(obs_phase(dev, args.cpu_rehearsal, args.seed, paths["train"])["paths"])
+    fleet = fleet_phase(dev, args.cpu_rehearsal, args.seed, chunk_us)
+    paths.update(fleet["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)
@@ -5272,6 +5967,7 @@ def main() -> int:
     kernels.update(mask["kernels"])
     kernels.update(ladder["kernels"])
     kernels.update(forms["kernels"])
+    kernels.update(fleet["kernels"])
 
     line = []
     for name, (source, replaces, on) in KERNELS.items():

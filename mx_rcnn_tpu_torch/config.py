@@ -8,8 +8,9 @@ layout such as ``spatial_partition`` and ``bucket_mb``, TPU layout rewrites such
 ``packed_head``/``fold_frozen_bn``, speed-only knobs such as
 ``assign_block``/``topk_block``/``roi_block``/``topk_impl`` whose forms
 are bit-identical to the dense or stable ones the port computes, the
-control, deploy and fabric planes) are left out; the port always executes
-the canonical forms.  ``ObsConfig`` is JAX's, field for field.
+cross-host fabric) are left out; the port always executes
+the canonical forms.  ``ObsConfig``, ``CtrlConfig`` and ``DeployConfig`` are
+JAX's, field for field.
 
 Two backend knobs keep their JAX-side values so a config reads the same in
 both packages: ``"pallas"`` selects the port's hand-written CUDA kernel
@@ -225,12 +226,16 @@ class TenancyConfig:
     table: str = ""
     # Where unknown or absent tenant tokens land; shares its bucket and label.
     default_tenant: str = "default"
+    # Burn-governor degrade action: a tenant-scoped SLO burn alert
+    # multiplies that tenant's admitted rate by this factor until the
+    # alert clears (serve/tenancy.py::QuotaGovernor).
+    tighten_factor: float = 0.25
 
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Serving-engine defaults read by serve/engine.py::build_engine
-    (explicit arguments win)."""
+    """Serving-engine defaults read by serve/engine.py::build_engine and
+    serve/fleet.py::build_fleet (explicit arguments win)."""
 
     # Static micro-batch slots per device call; >1 enables packing.
     batch_size: int = 1
@@ -244,6 +249,11 @@ class ServeConfig:
     # nms_impl="pallas" for every serving program; "off" forces the plain
     # chain.
     fused_middle: str = "inherit"
+    # Content-addressed result cache (serve/result_cache.py): max cached
+    # responses per router (LRU).  0 disables the cache and in-flight
+    # coalescing; fault drills keep it off so that every request reaches a
+    # real replica.
+    result_cache_capacity: int = 0
     # Per-tenant token-bucket quotas and weighted-fair pack shares.
     tenancy: TenancyConfig = field(default_factory=TenancyConfig)
 
@@ -328,6 +338,82 @@ class ObsConfig:
 
 
 @dataclass(frozen=True)
+class DeployConfig:
+    """Continuous deployment knobs (shadow canaries, parity-gated promotion,
+    burn-triggered rollback), read as ``cfg.ctrl.deploy.*``.  The port has
+    no reader yet: the Deployer (JAX ``ctrl/deploy.py``) is not ported.
+    The fields are here so that the same ``--set ctrl.deploy.*`` list
+    parses in both packages."""
+
+    # Master switch: serving entry points that honour it run a Deployer
+    # next to the fleet.
+    enabled: bool = False
+    # Seconds between checkpoint-directory scans.
+    poll_s: float = 2.0
+    # Fraction of accepted live submissions mirrored to the shadow replica
+    # (every Nth, N = round(1/rate)).
+    mirror_rate: float = 0.25
+    # Minimum mirrored live/shadow pairs before the gate may rule.
+    min_mirrored: int = 8
+    # Maximum seconds a candidate may sit in shadow before the gate rules.
+    shadow_window_s: float = 30.0
+    # Golden-set gate: allowed absolute mAP regression of the shadow.
+    map_drop: float = 0.005
+    # The shadow's own SLOs and burn windows.
+    availability_target: float = 0.95
+    latency_target: float = 0.95
+    latency_threshold_s: float = 30.0
+    burn_fast_s: float = 5.0
+    burn_slow_s: float = 15.0
+    burn_factor: float = 2.0
+    # Post-promote watch: a live burn alert inside this window rolls back
+    # to the previous generation.
+    watch_window_s: float = 60.0
+
+
+@dataclass(frozen=True)
+class CtrlConfig:
+    """Closed-loop control plane (ctrl/): SLO burn-rate alerting and the
+    SLO-driven autoscaler.  Host-side: no knob here changes what runs on
+    the card."""
+
+    # Master switch for serving entry points that run the autoscaler and
+    # the SLO engine next to the fleet.
+    enabled: bool = False
+    # Autoscaler fleet bounds and pressure thresholds (ctrl/autoscale.py):
+    # load is mean inflight+queue per routable replica; shed_high is sheds
+    # a second over the evaluation window.
+    min_replicas: int = 1
+    max_replicas: int = 8
+    load_high: float = 4.0
+    load_low: float = 0.5
+    shed_high: float = 0.0
+    # Windowed p99 (seconds) that counts as pressure; 0 disables it.
+    p99_high_s: float = 0.0
+    # Scale-down hysteresis: scale-up is immediate, scale-down needs this
+    # many consecutive comfortable evaluations, plus per-direction
+    # cooldowns.
+    down_dwell: int = 3
+    up_cooldown_s: float = 5.0
+    down_cooldown_s: float = 15.0
+    # Seconds between autoscaler and SLO evaluations.
+    period_s: float = 1.0
+    # Default SLOs (ctrl/slo.py): availability over the fleet's request
+    # outcomes, and "latency_target" of requests under
+    # "latency_threshold_s".
+    availability_target: float = 0.99
+    latency_target: float = 0.99
+    latency_threshold_s: float = 30.0
+    # Multi-window burn-rate alerting: alert when the burn over BOTH
+    # windows exceeds burn_factor x the budget rate.
+    burn_fast_s: float = 300.0
+    burn_slow_s: float = 3600.0
+    burn_factor: float = 2.0
+    # Continuous deployment, read as cfg.ctrl.deploy.*.
+    deploy: DeployConfig = field(default_factory=DeployConfig)
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "faster_rcnn_r50_fpn_coco"
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -335,6 +421,7 @@ class Config:
     serve: ServeConfig = field(default_factory=ServeConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    ctrl: CtrlConfig = field(default_factory=CtrlConfig)
     workdir: str = "runs"
 
 

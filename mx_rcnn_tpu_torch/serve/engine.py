@@ -476,7 +476,11 @@ class DetectorRunner:
 
     def _execute(self, mode: str, batch: Batch, live: _Live):
         stats = self.pixel_stats
-        with self._exec_lock, torch.inference_mode():
+        # The kernels launch on the calling thread's current card: a fleet's
+        # worker threads serve runners on any card of the host.
+        on_card = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                   else contextlib.nullcontext())
+        with self._exec_lock, on_card, torch.inference_mode():
             if mode == "proposals":
                 return forward_proposals(live.model, batch, stats)
             if mode == "reduced":

@@ -1,11 +1,8 @@
 """Multi-tenant identity, token-bucket quotas, and fair-share policy.
 
-The port's own copy of ``mx_rcnn_tpu/serve/tenancy.py``, less its
-``QuotaGovernor``: that bridge from ``ctrl/slo.py``'s burn alerts to
-:meth:`TenancyPolicy.tighten` / :meth:`TenancyPolicy.restore` comes with
-its caller.  Its other callers in the JAX package (the RPC surface, the
-fleet) are not ported yet either; the engine's admission and the batcher
-use it here.
+The port's own copy of ``mx_rcnn_tpu/serve/tenancy.py``, its
+``QuotaGovernor`` included.  The fleet, the engine's admission, the
+batcher and the governor use it here; the RPC surface is not ported.
 
 One :class:`TenancyPolicy` instance is shared by every admission layer
 — the RPC surface resolves wire tokens, ``serve/fleet.py`` charges the
@@ -28,9 +25,9 @@ Design constraints, in the order they bite:
   pressure, so it must never feed the autoscaler's shed-rate signal
   (serve/fleet.py keeps a separate ``quota`` counter).
 * **Burn-gated tightening.**  ctrl/slo.py per-tenant burn alerts call
-  :meth:`tighten` / :meth:`restore` (through the JAX package's
-  ``QuotaGovernor``) — one misbehaving tenant's admitted rate shrinks;
-  the fleet never sheds on its behalf.
+  :meth:`tighten` / :meth:`restore` through :class:`QuotaGovernor` —
+  one misbehaving tenant's admitted rate shrinks; the fleet never
+  sheds on its behalf.
 """
 
 from __future__ import annotations
@@ -40,9 +37,11 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
+from mx_rcnn_tpu_torch import obs
 
 __all__ = [
-    "DEFAULT_TENANT", "OTHER_LABEL", "TenantSpec", "TenancyPolicy", "parse_table",
+    "DEFAULT_TENANT", "OTHER_LABEL", "TenantSpec", "TenancyPolicy",
+    "QuotaGovernor", "parse_table",
 ]
 
 DEFAULT_TENANT = "default"
@@ -143,6 +142,7 @@ class TenancyPolicy:
         return cls(
             parse_table(tenancy_cfg.table),
             default_tenant=tenancy_cfg.default_tenant,
+            tighten_factor=tenancy_cfg.tighten_factor,
             clock=clock,
         )
 
@@ -256,3 +256,37 @@ class TenancyPolicy:
                 for name, b in self._buckets.items()
             }
 
+
+class QuotaGovernor:
+    """Bridges per-tenant SLO burn alerts to quota actions.
+
+    Attach as ``SLOEngine(on_alert=governor.on_alert)``: a burn *start*
+    on a tenant-scoped SLO tightens only that tenant's bucket; the
+    matching *stop* restores it.  Fleet-wide SLOs (``slo.tenant is
+    None``) pass through untouched — the governor never sheds the
+    fleet."""
+
+    def __init__(self, policy: TenancyPolicy,
+                 factor: Optional[float] = None) -> None:
+        self.policy = policy
+        self.factor = factor
+        self.actions: list = []  # (event, tenant) audit trail for tests
+
+    def on_alert(self, event: str, slo, payload: dict) -> None:
+        tenant = getattr(slo, "tenant", None)
+        if tenant is None:
+            return
+        if event == "start":
+            if self.policy.tighten(tenant, self.factor):
+                self.actions.append(("tighten", tenant))
+                obs.emit("ctrl", "tenant_quota_tightened", {
+                    "tenant": tenant, "slo": slo.name,
+                    "factor": self.factor if self.factor is not None
+                    else self.policy.tighten_factor,
+                })
+        elif event == "stop":
+            if self.policy.restore(tenant):
+                self.actions.append(("restore", tenant))
+                obs.emit("ctrl", "tenant_quota_restored", {
+                    "tenant": tenant, "slo": slo.name,
+                })

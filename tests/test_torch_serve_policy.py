@@ -281,14 +281,13 @@ def _specs(table):
 def test_tenancy_config_is_jax():
     from mx_rcnn_tpu.config import TenancyConfig as JaxTenancyConfig
 
-    # Every field but JAX's tighten_factor, which only its QuotaGovernor
-    # reads (not ported: its caller, ctrl/slo.py, waits).
+    # Every field, tighten_factor (the QuotaGovernor's) included.
     jax_fields = vars(JaxTenancyConfig())
-    assert set(jax_fields) - set(vars(TenancyConfig())) == {"tighten_factor"}
-    assert TenancyConfig() == TenancyConfig(**{k: v for k, v in jax_fields.items()
-                                               if k != "tighten_factor"})
+    assert set(jax_fields) == set(vars(TenancyConfig()))
+    assert TenancyConfig() == TenancyConfig(**jax_fields)
     assert TT.TenancyPolicy.from_config(TenancyConfig()) is None
-    cfg = TenancyConfig(enabled=True, table="a:rate=1,burst=2", default_tenant="d")
+    cfg = TenancyConfig(enabled=True, table="a:rate=1,burst=2", default_tenant="d",
+                        tighten_factor=0.5)
     ours = TT.TenancyPolicy.from_config(cfg)
     theirs = JT.TenancyPolicy.from_config(JaxTenancyConfig(**vars(cfg)))
     assert (_specs(ours.table), ours.default_tenant, ours.tighten_factor,
