@@ -333,6 +333,36 @@ when every phase passed):
    ``chip_smoke.py --fleet-lockcheck-child`` under ``MX_RCNN_LOCKCHECK=1``:
    zero violations.  Launches count as the ``fleet`` (B1, B3: (a) and
    (b)-(f)) and ``fleet_proposals`` (B1, B4) paths.
+7l. Continuous deployment (:func:`deploy_phase`): phase 7k's fleet
+   (``r50_fpn_coco`` at full width, 2 replicas, ``serve.fused_middle=on``)
+   under a live ``SLOEngine`` (0.2 s) and a ``Deployer`` over a checkpoint
+   directory: (a) the served weights saved by ``save_checkpoint`` under a
+   fresh step and offered under a live load, every submission mirrored to
+   a spare shadow engine on the card: promoted under the shadow's reserved
+   generation, no pair mismatched, every later response at it and bitwise
+   a single runner's; a second fleet with ``rpn.nms_impl=pallas`` walks
+   replica 0's ladder, then promotes the same way behind a Deployer whose
+   ``mirror_timeout_s`` (every shadow inference's budget, as in JAX) is 3x
+   the least estimate, under mirrored requests with that deadline: every
+   pair at ``proposals`` and bitwise (B4 on both sides); (b) a
+   candidate with one flipped byte is ``invalid`` and never staged; one
+   with the box head's regression biases moved is rejected for parity,
+   its golden-set mAP under the live one (both printed), no replica
+   swapped and no response at its burned generation; (c) a clean
+   candidate promoted, the allocated memory after its shadow within 16 MiB
+   of before, then requests with deadlines nothing meets raise the live
+   burn alert and the Deployer rolls back to a higher generation, every
+   later response bitwise the restored weights' runner; the seconds of
+   the shadow, the roll and burn to rollback printed; (d) ``python -m
+   mx_rcnn_tpu_torch.tools.soak --config r50_fpn_coco --deploy`` for 20 s:
+   HELD, nothing failed, one kill and rebuild, its candidate promoted, its
+   record logged; (e) (a) and (c) again in ``chip_smoke.py
+   --deploy-lockcheck-child`` under ``MX_RCNN_LOCKCHECK=1``, beside (d):
+   zero violations.  B1 and B3 on (a)'s shadow's last call and B4 on the
+   second fleet's shadow's last call held against their plain versions:
+   the ``@deploy`` entries.  Launches count as the ``deploy`` (B1, B3:
+   (a)-(c), shadows and golden sets included) and ``deploy_proposals``
+   (B1, B4) paths.
 8. A small input (``tiny_synthetic``, float32, TF32 off): the kernel
    path and the plain torch path on the card must return identical
    detections, the CPU's shown beside them; and one train step through
@@ -1309,7 +1339,8 @@ def roidb_phase(dev, rehearsal: bool, seed: int, steps: int = 8) -> dict:
         def call(*args, **kw):
             t0 = time.perf_counter()
             out = saved[key](*args, **kw)
-            times[key].append((args[1].step, time.perf_counter() - t0))
+            step = args[1]["step"] if key == "save" else args[1].step   # a payload, a state
+            times[key].append((step, time.perf_counter() - t0))
             return out
         return call
 
@@ -1678,7 +1709,7 @@ def eval_phase(dev, rehearsal: bool, trained: dict) -> dict:
     try:
         ckpt_dir = os.path.join(work, "ckpt")
         t0 = time.perf_counter()
-        ckpt.save_checkpoint(ckpt_dir, state)
+        ckpt.save_checkpoint(ckpt_dir, ckpt.state_payload(state))
         t_save = time.perf_counter() - t0
         verified = ckpt.verify_manifest(ckpt_dir, state.step)
         _, _, fresh, _, _ = build_all(cfg, dev)
@@ -2530,7 +2561,7 @@ def fast_rcnn_phase(dev, rehearsal: bool, seed: int, chunk_us: dict) -> dict:
                 head.weight[1:5] = head.weight[0]
                 head.bias[1:5] = head.bias[0] + 1.0
             ckpt_c = os.path.join(work, "c", "ckpt")
-            ckpt.save_checkpoint(ckpt_c, state)
+            ckpt.save_checkpoint(ckpt_c, ckpt.state_payload(state))
             shutil.rmtree(os.path.join(work, "a"), ignore_errors=True)
 
             # (b) The default in-graph schedule, two phases.
@@ -3022,7 +3053,7 @@ def forms_norm(dev, rehearsal: bool, seed: int, norm: str, launches: dict) -> di
     work = os.path.join(ROOT, "runs", f"chip_smoke_forms_{norm}_{os.getpid()}")
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
-    save_checkpoint(work, state)
+    save_checkpoint(work, state_payload(state))
     saved_s = time.perf_counter() - t0
     _, _, fresh, _, _ = build_all(cfg, device=dev)
     restore_checkpoint(work, fresh)
@@ -4247,7 +4278,7 @@ def evalx_phase(dev, rehearsal: bool, seed: int, trained: dict, phase6: dict) ->
         with torch.no_grad():
             bias[1:5] += 4.0
         try:
-            ckpt.save_checkpoint(ckpt_dir, trained["state"])
+            ckpt.save_checkpoint(ckpt_dir, ckpt.state_payload(trained["state"]))
         finally:
             with torch.no_grad():
                 bias.copy_(base)
@@ -5713,6 +5744,698 @@ def fleet_phase(dev, rehearsal: bool, seed: int, chunk_us: dict) -> dict:
             "kernels": kernels, "route": route, "drills": drills}
 
 
+DEPLOY_CONFIG = FLEET_CONFIG
+DEPLOY_WAIT = 120.0
+
+
+class DeployRun:
+    """One phase 7l fleet with its Deployer: ``fleet`` serving, ``dep`` over
+    ``ckpt`` (one Deployer for every candidate, so that no generation is
+    issued twice), and the replica id and device of each shadow engine the
+    Deployer built, in order.
+    ``in_shadow()`` says whether the calling thread is the current
+    shadow's worker (the kernel captures keep the shadow's calls alone);
+    ``shadow_errors`` names each failed shadow inference's error.  With
+    ``prime``, each shadow engine is handed to it before the Deployer
+    starts it."""
+
+    def __init__(self, fleet, cfg, ckpt: str, live_slo, prime=None, **kw) -> None:
+        from mx_rcnn_tpu_torch.ctrl import build_deployer
+
+        self.fleet, self.cfg, self.ckpt = fleet, cfg, ckpt
+        self.shadows = []   # (replica id, device) of each shadow: no reference kept
+        self.shadow_errors = []
+
+        def traced_spare():
+            eng = fleet.build_spare_engine()
+            self.shadows.append((eng.replica_id, eng.runner.device))
+            if prime is not None:
+                prime(eng)
+            infer = eng.infer
+
+            def traced_infer(image, timeout=None):
+                try:
+                    return infer(image, timeout)
+                except Exception as e:
+                    self.shadow_errors.append(f"{type(e).__name__}: {e}")
+                    raise
+
+            eng.infer = traced_infer
+            return eng
+
+        kw = {"shadow_window_s": DEPLOY_WAIT, "mirror_timeout_s": DEPLOY_WAIT, **kw}
+        self.dep = build_deployer(cfg, fleet, ckpt_dir=ckpt, live_slo=live_slo, mirror_rate=1.0,
+                                  poll_s=0.1, shadow_engine_factory=traced_spare, **kw)
+
+    def in_shadow(self) -> bool:
+        sh = self.dep._shadow
+        eng = None if sh is None else sh.engine
+        return eng is not None and threading.current_thread() is getattr(eng, "_worker", None)
+
+    def fresh_step(self) -> int:
+        from mx_rcnn_tpu_torch.train import checkpoint
+
+        return (checkpoint.latest_step(self.ckpt) or 0) + 1
+
+    def save(self, variables) -> tuple[int, float]:
+        """``variables`` saved by ``save_checkpoint`` under a fresh step:
+        (step, seconds)."""
+        from mx_rcnn_tpu_torch.train import checkpoint
+
+        step = self.fresh_step()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(self.ckpt, checkpoint.weights_payload(step, variables))
+        return step, time.perf_counter() - t0
+
+    def spans(self, step: int) -> dict:
+        """Seconds of one offer from the Deployer's history: candidate to
+        shadow start (verify, load, build and warm the shadow, swap),
+        the shadow window (mirror, golden set, stop), the roll, and
+        candidate to promotion."""
+        t = {h["kind"]: h["t"] for h in self.dep.history if h.get("step") == step}
+        out = {}
+        if "deploy_shadow_start" in t:
+            out["stage_s"] = t["deploy_shadow_start"] - t["deploy_candidate"]
+        if "deploy_shadow_verdict" in t:
+            out["shadow_s"] = t["deploy_shadow_verdict"] - t["deploy_shadow_start"]
+        if "deploy_promote" in t:
+            out["roll_s"] = t["deploy_promote"] - t["deploy_shadow_verdict"]
+            out["to_promote_s"] = t["deploy_promote"] - t["deploy_candidate"]
+        return out
+
+
+def compared_pairs(store: list):
+    """Wrap ``ctrl/deploy.py::payloads_equal`` (called on each mirrored pair
+    whose levels match) to append (level, bitwise equal) to ``store``."""
+    from mx_rcnn_tpu_torch.ctrl import deploy as deploy_mod
+
+    def on_call(name, a, out):
+        store.append((a["a"].get("level"), out))
+
+    return captured(deploy_mod, ("payloads_equal",), on_call)
+
+
+def shadow_capture(run: DeployRun, store: dict, nms_store: dict):
+    """The ROIAlign, fused-middle and NMS inputs of the shadow engine's last
+    call (its worker thread's; the live replicas' calls are not kept)."""
+    from mx_rcnn_tpu_torch.ops.cuda import middle as middle_mod
+    from mx_rcnn_tpu_torch.ops.cuda import nms as nms_mod
+
+    def only_shadow(keep):
+        def on_call(name, arguments, out):
+            if run.in_shadow():
+                keep(name, arguments, out)
+        return on_call
+
+    store.setdefault("pool", [])
+    stack = contextlib.ExitStack()
+    stack.enter_context(captured_pool(store["pool"], lambda size, levels: run.in_shadow()))
+    stack.enter_context(captured(middle_mod, ("_launch", "fused_middle_levels_plain"),
+                                 only_shadow(keep_last(store))))
+    stack.enter_context(captured(nms_mod, ("nms_keep_sorted_cuda",),
+                                 only_shadow(keep_last(nms_store))))
+    return stack
+
+
+def golden_set(oracle, images: list, counters: dict) -> dict:
+    """A golden set whose ground truth is ``oracle``'s own detections on
+    ``images`` (the live weights'), one class at a time; the reference
+    runs are not counted."""
+    gt = {}
+    for i, img in enumerate(images):
+        with uncounted(counters):
+            res = oracle.run("full", oracle.pick_bucket(*img.shape[:2]), [img])[0]
+        for c in np.unique(res["classes"]):
+            keep = res["classes"] == c
+            gt.setdefault(int(c), {})[str(i)] = {"boxes": res["boxes"][keep],
+                                                 "difficult": np.zeros(int(keep.sum()), bool)}
+    for per_image in gt.values():
+        for i in range(len(images)):
+            per_image.setdefault(str(i), {"boxes": np.zeros((0, 4), np.float32),
+                                          "difficult": np.zeros(0, bool)})
+    return {"images": images, "gt": gt}
+
+
+def settled(dev) -> float:
+    """Allocated card memory in MiB after a collection (0 on the CPU)."""
+    import gc
+
+    gc.collect()
+    if dev.type != "cuda":
+        return 0.0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 2**20
+
+
+def deploy_promote(dev, run: DeployRun, variables, images: FleetImages, counters: dict,
+                   oracle, rehearsal: bool, store: dict | None = None) -> dict:
+    """Phase 7l (a): the served weights saved under a fresh step, then
+    ``offer`` under a live load of 2 in flight, every submission mirrored:
+    promoted; the shadow a spare engine on ``dev`` outside the rotation;
+    ``mirrored`` at least ``min_mirrored`` with compared pairs and none
+    mismatched; the fleet at the shadow's reserved generation; every
+    response of the load the single runner's bitwise, those after the roll
+    at that generation.  With ``store``, the shadow's last call's kernel
+    inputs are kept there."""
+    fleet, dep = run.fleet, run.dep
+    step, save_s = run.save(variables)
+    pairs = []
+    load = FleetLoad(fleet, images, depth=2)
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(compared_pairs(pairs))
+            if store is not None:
+                stack.enter_context(shadow_capture(run, store, {}))
+            out = dep.offer(step)
+        mark = len(load.accepted)
+        load.wait_done(mark + (2 if rehearsal else 6))
+        results = load.stop()
+    finally:
+        load.halt()
+    v = out.get("verdict")
+    rid, on = run.shadows[-1] if run.shadows else (None, None)
+    gen = out.get("generation")
+    failed = fleet_failed(results)
+    served = [(i, r) for i, r in results if not isinstance(r, str)]
+    after = [r["generation"] for _, r in results[mark:] if not isinstance(r, str)]
+    bad = fleet_oracle(counters, oracle, images, served)
+    spans = run.spans(step)
+    log(f"[deploy:promote] step {step} saved in {save_s:.3f} s; {out['outcome']} ({v.reason if v else out.get('reason')}): "
+        f"generation {gen} (reserved {v.generation if v else None}); mirrored {v.mirrored if v else 0}, "
+        f"compared {v.compared if v else 0}, mismatched {v.mismatched if v else 0}, level "
+        f"mismatch {v.level_mismatch if v else 0}; shadow rid {rid} on {on}; seconds "
+        f"{ {k: round(s, 3) for k, s in spans.items()} }; {len(results)} responses under load, "
+        f"{len(after)} submitted after the promote, at generations {sorted(set(after))}; failed "
+        f"{failed}; bitwise the single runner's: {not bad}")
+    live = {r["rid"] for r in fleet.stats()["replica"]}
+    if out["outcome"] != "promoted":
+        raise AssertionError(f"deploy promote: {out}")
+    if v.mirrored < dep.min_mirrored or v.compared <= 0 \
+            or v.mismatched or failed or bad or not after or set(after) != {gen} \
+            or gen != v.generation or fleet.generation != gen or rid is None or rid in live \
+            or on.type != dev.type or not all(eq for _, eq in pairs):
+        raise AssertionError(f"deploy promote: {out}, failed {failed}, differ {bad}, pairs {pairs}")
+    return {"step": step, "generation": gen, "spans": spans, "save_s": save_s,
+            "mirrored": v.mirrored, "compared": v.compared, "levels": sorted({lv for lv, _ in pairs})}
+
+
+def deploy_proposals(dev, rehearsal: bool, seed: int, variables, images: FleetImages,
+                     counters: dict, work: str, live_slo, store: dict) -> dict:
+    """Phase 7l (a), the ladder's bottom: a second fleet of two replicas whose
+    programs run ``rpn.nms_impl=pallas`` with the fused middle off (B4, as
+    phase 7k's second fleet), headroom 10.  Replica 0's ladder is walked as
+    phase 7k walks it; then a Deployer of the fleet's own, whose
+    ``mirror_timeout_s`` (the budget every shadow inference gets) is 7x
+    the least of replica 0's ``full`` and ``reduced`` estimates: a budget
+    that plans ``proposals`` at headroom 10 and that a ``proposals`` call
+    meets while the live replica and the shadow share the card (each runs
+    about 3.5x slower then); two requests at that deadline without a
+    shadow first.  The shadow is primed: started, one
+    request served without a deadline (its worker's first call, which
+    sets up the card's libraries for that thread), then replica 0's
+    estimates.  Under the shadow, one request at a time with that same
+    deadline, each mirrored: nothing fits at headroom 4, so both sides
+    serve ``proposals`` (B4).  Promoted, every pair at ``proposals`` and
+    bitwise; the shadow's last B4 inputs kept in ``store``; the launches
+    counted from 0."""
+    from mx_rcnn_tpu_torch.serve.engine import DetectorRunner
+    from mx_rcnn_tpu_torch.serve.fleet import build_fleet
+
+    cfg = fleet_cfg(rehearsal, "serve.fused_middle=inherit", "model.rpn.nms_impl=pallas",
+                    "serve.result_cache_capacity=0")
+    fleet = build_fleet(cfg, variables, n_replicas=2, device=dev, supervisor_poll=0.05,
+                        engine_kwargs={"headroom": 10.0})
+    oracle = DetectorRunner(cfg, variables, batch_size=1, device=dev)
+    oracle.warmup()
+    pairs, results, ladder = [], [], []
+    est = lambda: fleet.stats()["replica"][0]["engine"]["latency_estimates_s"]  # noqa: E731
+
+    def serve(deadline: float):
+        i = next(images.count)
+        try:
+            res = fleet.submit(images(i), timeout=deadline).result(FLEET_WAIT)
+        except Exception as e:   # a miss fails the step below, after the offer
+            ladder.append((round(1e3 * deadline, 2), f"{type(e).__name__}: {e}"))
+            return
+        results.append((i, res))
+        ladder.append((round(1e3 * deadline, 2), res["level"], res.get("replica_id"),
+                       round(1e3 * res["latency_s"], 2)))
+
+    try:
+        fleet.start()
+        for fn in counters.values():
+            fn.launches = 0
+        idx = [next(images.count) for _ in range(4)]
+        reqs = [fleet.submit(images(i), timeout=FLEET_WAIT) for i in idx]
+        results += [(i, r.result(FLEET_WAIT)) for i, r in zip(idx, reqs)]
+        for pick in (lambda e: e["full"], lambda e: min(e["full"], e["reduced"])):
+            serve(3.0 * pick(est()))
+        est_at = est()
+        budget = 7.0 * min(est_at[lv] for lv in ("full", "reduced"))
+        for _ in range(2):
+            serve(budget)   # the budget without a shadow
+
+        def prime(eng):
+            eng.start()   # the Deployer's start is then a no-op
+            eng.infer(images(next(images.count)), timeout=FLEET_WAIT)
+            for level, seconds in est().items():
+                eng.estimates.observe(level, seconds)
+
+        run = DeployRun(fleet, cfg, os.path.join(work, "ckpt_b4"), live_slo, prime=prime,
+                        min_mirrored=7, mirror_timeout_s=budget, shadow_window_s=30.0)
+
+        def drive():
+            wait_for(lambda: any(h["kind"] == "deploy_shadow_start"
+                                 for h in list(run.dep.history))
+                     and fleet._mirror is not None, DEPLOY_WAIT, "deploy proposals: no shadow")
+            for _ in range(run.dep.min_mirrored):
+                serve(budget)
+
+        walk = threading.Thread(target=drive, name="deploy-ladder", daemon=True)
+        step, _ = run.save(variables)
+        with compared_pairs(pairs), shadow_capture(run, {"pool": []}, store):
+            walk.start()
+            out = run.dep.offer(step)
+        walk.join(FLEET_WAIT)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        clean = fleet.drain(timeout=FLEET_WAIT)
+    finally:
+        fleet.stop()
+    v = out.get("verdict")
+    bad = fleet_oracle(counters, oracle, images, results)
+    log(f"[deploy:proposals] rpn.nms_impl=pallas fleet: {out['outcome']} ({v.reason if v else None}) "
+        f"at generation {out.get('generation')}; replica 0's estimates ms "
+        f"{ {k: round(1e3 * x, 2) for k, x in est_at.items()} }; shadow budget {1e3 * budget:.2f} ms; deadlines "
+        f"ms, live levels, replica and ms, the last {run.dep.min_mirrored} mirrored: {ladder}; "
+        f"compared pairs (level, bitwise) {pairs}; level mismatch {v.level_mismatch if v else None}; "
+        f"shadow errors {run.shadow_errors}; "
+        f"seconds { {k: round(x, 3) for k, x in run.spans(step).items()} }; bitwise a single "
+        f"runner's: {not bad}; drained {clean}; launches {launches}")
+    if out["outcome"] != "promoted":
+        raise AssertionError(f"deploy proposals: {out}, {ladder}, pairs {pairs}")
+    if walk.is_alive() or bad or not clean or v.level_mismatch or v.mismatched \
+            or set(pairs) != {("proposals", True)} or len(results) != len(ladder) + 4 \
+            or any(r["level"] != "proposals" for _, r in results[-9:]):
+        raise AssertionError(f"deploy proposals: {out}, {ladder}, pairs {pairs}, differ {bad}")
+    if dev.type == "cuda" and min(launches["nms"], launches["roi_align"]) < 1:
+        raise AssertionError(f"deploy proposals: B4 or B1 never launched ({launches})")
+    return {"launches": launches, "ladder": ladder, "pairs": pairs}
+
+
+def deploy_reject(run: DeployRun, variables, images: FleetImages, oracle, counters: dict,
+                  seed: int, rehearsal: bool) -> dict:
+    """Phase 7l (b): a checkpoint of the served weights with one byte of its
+    state file flipped after its manifest was written is ``invalid``
+    (``file_checksum_mismatch:...``) and never staged; the served weights
+    with the box head's regression biases moved by a seeded 10 +- 0.5 in x
+    and y, offered against a golden set of two images whose ground truth is
+    the live weights' own detections, under a live load, are ``rejected``
+    for parity with the shadow's mAP under the live one.  No replica swaps,
+    and no response carries the burned generation."""
+    from mx_rcnn_tpu_torch.train import checkpoint
+
+    fleet, dep = run.fleet, run.dep
+    gen0 = fleet.generation
+    runner_gens = {rid: r.engine.runner.generation for rid, r in fleet._replicas.items()}
+    step, _ = run.save(variables)
+    state = os.path.join(checkpoint.step_dir(run.ckpt, step), checkpoint.STATE_FILE)
+    with open(state, "r+b") as f:
+        f.seek(os.path.getsize(state) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+    shadows = len(run.shadows)
+    corrupt = dep.offer(step)
+    staged = len(run.shadows) - shadows
+    kinds = [h["kind"] for h in dep.history if h.get("step") == step]
+
+    moved = {k: t.clone() for k, t in variables.items()}
+    g = torch.Generator().manual_seed(seed + 17)
+    bias = moved["box_head.bbox_pred.bias"]
+    for j in (0, 1):
+        bias[j::4] += 10.0 + 0.5 * torch.randn(bias[j::4].shape, generator=g)
+    step2, _ = run.save(moved)
+    dep.golden = golden_set(oracle, [images(next(images.count)) for _ in range(2)], counters)
+    load = FleetLoad(fleet, images, depth=2)
+    try:
+        out = dep.offer(step2)
+        load.wait_done(load.done() + 2)
+        results = load.stop()
+    finally:
+        load.halt()
+        dep.golden = None
+    v = out.get("verdict")
+    served = [(i, r) for i, r in results if not isinstance(r, str)]
+    burned = [r["generation"] for _, r in served if r["generation"] == (v.generation if v else -1)]
+    bad = fleet_oracle(counters, oracle, images, served)
+    after = {rid: r.engine.runner.generation for rid, r in fleet._replicas.items()}
+    log(f"[deploy:reject] corrupt step {step}: {corrupt['outcome']} ({corrupt['reason']}), shadows "
+        f"built {staged}, events {kinds}; divergent step {step2}: {out['outcome']} "
+        f"({out.get('reason')}) at burned generation {v.generation if v else None}, mirrored "
+        f"{v.mirrored if v else 0}, mismatched {v.mismatched if v else 0}; mAP live "
+        f"{v.map_live if v else None}, shadow {v.map_shadow if v else None}; fleet generation "
+        f"{fleet.generation}; {len(served)} responses, {len(burned)} at the burned generation, "
+        f"failed {fleet_failed(results)}; bitwise the single runner's: {not bad}")
+    if corrupt["outcome"] != "invalid" \
+            or not corrupt["reason"].startswith("file_checksum_mismatch:") or staged \
+            or kinds != ["deploy_candidate", "deploy_reject"]:
+        raise AssertionError(f"deploy reject: corrupt candidate {corrupt}, staged {staged}")
+    if out["outcome"] != "rejected" or v is None:
+        raise AssertionError(f"deploy reject: divergent candidate {out}")
+    if out.get("reason") != "parity" or not v.mismatched \
+            or v.map_live is None or v.map_shadow is None or not v.map_shadow < v.map_live \
+            or burned or bad or fleet_failed(results) or fleet.generation != gen0 \
+            or after != runner_gens:
+        raise AssertionError(f"deploy reject: divergent candidate {out}, burned {burned}, "
+                             f"differ {bad}, generations {runner_gens} -> {after}")
+    return {"corrupt": corrupt["reason"], "map_live": v.map_live, "map_shadow": v.map_shadow,
+            "burned": v.generation}
+
+
+def deploy_rollback(dev, run: DeployRun, variables, images: FleetImages, counters: dict,
+                    oracle, live_slo, rehearsal: bool) -> dict:
+    """Phase 7l (c): a clean candidate (the served weights) promoted under
+    load, the allocated memory after the shadow stopped within 16 MiB of its
+    level before (the fleet idle at both readings); then the Deployer's loop
+    (0.1 s) runs while requests with a deadline nothing meets fail on the
+    live replicas beside a healthy load: the live burn alert triggers
+    ``deploy_rollback`` to a generation above the promoted one, and every
+    response after the roll is at that generation and bitwise the single
+    runner's on the restored weights.  No healthy request fails."""
+    fleet, dep = run.fleet, run.dep
+    m0 = settled(dev)
+    shadows = len(run.shadows)
+    step, _ = run.save(variables)
+    load = FleetLoad(fleet, images, depth=2)
+    try:
+        out = dep.offer(step)
+        healthy = load.stop()
+    finally:
+        load.halt()
+    m1 = settled(dev)
+    v = out.get("verdict")
+    promoted = out.get("generation")
+    if out["outcome"] != "promoted" or len(run.shadows) != shadows + 1:
+        raise AssertionError(f"deploy rollback: the clean candidate was not promoted: {out}")
+    alerts0 = len(live_slo.alerts)
+    good = FleetLoad(fleet, images, depth=2)
+    bad = None
+    t0 = time.monotonic()
+    try:
+        dep.start(recover=False)
+        bad = FleetLoad(fleet, images, depth=1, timeout=1e-4)
+        wait_for(lambda: any(h["kind"] == "deploy_rollback" for h in list(dep.history)),
+                 DEPLOY_WAIT, "deploy rollback: no rollback after the burn")
+        injected = bad.stop()
+        mark = len(good.accepted)
+        good.wait_done(mark + (2 if rehearsal else 8))
+        window = good.stop()
+    finally:
+        good.halt()
+        if bad is not None:
+            bad.halt()
+        dep.stop()
+    rb = next(h for h in dep.history if h["kind"] == "deploy_rollback")
+    burn = next(a for a in list(live_slo.alerts)[alerts0:] if a["event"] == "start")
+    to_gen = rb["to_generation"]
+    healthy += window
+    failed = fleet_failed(healthy)
+    served = [(i, r) for i, r in healthy if not isinstance(r, str)]
+    tail = [r["generation"] for _, r in window[mark:] if not isinstance(r, str)]
+    restored = fleet.current_weights()[1]
+    same_tree = restored.keys() == variables.keys() and all(
+        torch.equal(restored[k].cpu(), variables[k].cpu()) for k in variables)
+    bad_bits = fleet_oracle(counters, oracle, images, served)
+    log(f"[deploy:rollback] step {step} promoted at generation {promoted} (reserved "
+        f"{v.generation}; seconds { {k: round(s, 3) for k, s in run.spans(step).items()} }); "
+        f"allocated {m0:.1f} MiB before the shadow, {m1:.1f} after it stopped; burn alert "
+        f"{burn['slo']} (fast burn {burn['burn_fast']:.2f}) {burn['t'] - t0:.3f} s into the "
+        f"failure window; rollback {rb['from_generation']} -> {to_gen} (restored generation "
+        f"{rb['restored_generation']}) done {rb['t'] - burn['t']:.3f} s after the burn start; "
+        f"injected {len(fleet_failed(injected))} failed + {len(bad.refused)} refused; healthy "
+        f"{len(healthy)}, failed {failed}; {len(tail)} submitted after the roll, at generations "
+        f"{sorted(set(tail))}; restored tree equal to the served one: {same_tree}; bitwise the "
+        f"single runner's: {not bad_bits}")
+    if (dev.type == "cuda" and abs(m1 - m0) > 16.0) or to_gen <= promoted \
+            or rb["from_generation"] != promoted or fleet.generation != to_gen or failed \
+            or not tail or set(tail) != {to_gen} or bad_bits or not same_tree:
+        raise AssertionError(f"deploy rollback: {rb}, memory {m0} -> {m1}, failed {failed}, "
+                             f"after the roll {tail}, differ {bad_bits}")
+    return {"promoted": promoted, "to_generation": to_gen, "mem_mib": (m0, m1),
+            "burn_to_roll_s": rb["t"] - burn["t"], "spans": run.spans(step)}
+
+
+def deploy_soak(rehearsal: bool, work: str) -> subprocess.Popen:
+    """Phase 7l (d), started: ``python -m mx_rcnn_tpu_torch.tools.soak
+    --deploy`` on ``r50_fpn_coco`` for 20 s at 3 req/s, 2-3 replicas (the rehearsal:
+    ``tiny_synthetic`` on the CPU, 2 threads)."""
+    cmd = [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.soak", "--deploy", "--qps", "3",
+           "--min-replicas", "2", "--max-replicas", "3",
+           "--obs-dir", os.path.join(work, "soak_obs"),
+           "--deploy-ckpt-dir", os.path.join(work, "soak_ckpt")]
+    cmd += ["--config", "tiny_synthetic", "--device", "cpu"] if rehearsal else \
+        ["--config", DEPLOY_CONFIG]
+    cmd += ["--duration", "20"]
+    log(f"[deploy:soak] {' '.join(cmd[1:])}")
+    # The rehearsal's engines share the host with the sanitized child's.
+    env = dict(os.environ, OMP_NUM_THREADS="2") if rehearsal else None
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def deploy_soak_result(proc: subprocess.Popen, t0: float) -> dict:
+    """Phase 7l (d), read: exit 0, ``[soak] SLO VERDICT: HELD``, nothing
+    failed, one kill with its rebuild, a deploy story that ends promoted;
+    its record is logged as a line of its own."""
+    out, err = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    rec = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
+    for line in err.strip().splitlines():
+        if line.startswith("[soak]"):
+            log(f"  {line}")
+    if rec is not None:
+        log(json.dumps(rec))
+    story = (rec or {}).get("deploy") or {}
+    log(f"[deploy:soak] exit {proc.returncode} in {wall:.2f} s; submitted "
+        f"{(rec or {}).get('submitted')}, completed {(rec or {}).get('completed')}, failed "
+        f"{(rec or {}).get('failed')}, killed {(rec or {}).get('killed_rid')}, reinstated "
+        f"{(rec or {}).get('reinstatements')}; deploy promoted {story.get('promoted')} at "
+        f"generation {story.get('generation_final')}; latency by level "
+        f"{(rec or {}).get('latency_by_level')}")
+    if proc.returncode != 0 or "[soak] SLO VERDICT: HELD" not in err or rec is None \
+            or rec["failed"] != 0 or rec["killed_rid"] is None or rec["reinstatements"] < 1 \
+            or not story.get("promoted") or story.get("rolled_back"):
+        raise AssertionError(f"deploy soak: exit {proc.returncode}: {err[-3000:]}")
+    return {"wall_s": wall, "completed": rec["completed"], "submitted": rec["submitted"],
+            "latency_by_level": rec["latency_by_level"]}
+
+
+def deploy_drills(dev, rehearsal: bool, seed: int, fleet, cfg, variables, images: FleetImages,
+                  counters: dict, oracle, work: str, live_slo, store: dict | None) -> dict:
+    """Phase 7l (a), (b) and (c) on a started fleet (the phase's, or the
+    lockcheck child's with no ``oracle`` and no (b))."""
+    run = DeployRun(fleet, cfg, os.path.join(work, "ckpt"), live_slo,
+                    min_mirrored=4 if rehearsal else 8)
+    out = {"promote": deploy_promote(dev, run, variables, images, counters, oracle, rehearsal,
+                                     store)}
+    if oracle is not None:
+        out["reject"] = deploy_reject(run, variables, images, oracle, counters, seed, rehearsal)
+    out["rollback"] = deploy_rollback(dev, run, variables, images, counters, oracle, live_slo,
+                                      rehearsal)
+    return out
+
+
+def deploy_lockcheck_child(dev, rehearsal: bool, seed: int) -> int:
+    """The process phase 7l starts under ``MX_RCNN_LOCKCHECK=1``: a fleet of
+    its own through (a) and (c), then ``drain()``.  Prints one JSON line
+    last."""
+    import shutil
+
+    from mx_rcnn_tpu_torch.analysis import lockcheck
+    from mx_rcnn_tpu_torch.ctrl import build_controller
+
+    if rehearsal:
+        torch.set_num_threads(2)
+    work = os.path.join(ROOT, "runs", f"chip_smoke_deploy_child_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    fleet, cfg, variables, _, _ = fleet_start(dev, rehearsal, seed)
+    live_slo, _ = build_controller(cfg, fleet)
+    try:
+        live_slo.start(cfg.ctrl.period_s)
+        deploy_drills(dev, rehearsal, seed, fleet, cfg, variables, FleetImages(rehearsal, seed),
+                      {}, None, work, live_slo, None)
+        drained = fleet.drain(timeout=FLEET_WAIT)
+    finally:
+        live_slo.stop()
+        fleet.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    if fleet_threads():
+        time.sleep(0.2)   # a request's watcher leaves just after its latch
+    print(json.dumps({"installed": lockcheck.enabled(), "violations": lockcheck.violation_count(),
+                      "graph": lockcheck.order_graph(), "drained": drained,
+                      "threads": fleet_threads() + deploy_threads()}), flush=True)
+    return 0
+
+
+DEPLOY_THREADS = ("deploy-", "ctrl-deploy")
+
+
+def deploy_threads() -> list:
+    return [t.name for t in threading.enumerate() if t.name.startswith(DEPLOY_THREADS)]
+
+
+def deploy_lockcheck(rehearsal: bool, seed: int) -> subprocess.Popen:
+    """Phase 7l (e), started: ``chip_smoke.py --deploy-lockcheck-child``
+    under ``MX_RCNN_LOCKCHECK=1``."""
+    cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--deploy-lockcheck-child",
+           "--seed", str(seed)] + (["--cpu-rehearsal"] if rehearsal else [])
+    return subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, MX_RCNN_LOCKCHECK="1"),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def deploy_lockcheck_result(proc: subprocess.Popen, t0: float) -> dict:
+    """Phase 7l (e), read: zero violations, no thread left, drained."""
+    out, err = proc.communicate(timeout=900)
+    for line in out.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"deploy lockcheck: the child exited {proc.returncode}: "
+                             f"{err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    log(f"[deploy:lockcheck] child {time.perf_counter() - t0:.2f} s: sanitizer installed "
+        f"{got['installed']}, violations {got['violations']}, threads left {got['threads']}; "
+        f"order graph (held -> acquired), {sum(len(v) for v in got['graph'].values())} edges:")
+    for held, acquired in sorted(got["graph"].items()):
+        log(f"  {held} -> {', '.join(acquired)}")
+    if not got["installed"] or got["violations"] != 0 or got["threads"] or not got["drained"]:
+        raise AssertionError(f"deploy lockcheck: {got}")
+    return got
+
+
+def deploy_kernels(dev, rehearsal: bool, cfg, store: dict, nms_store: dict,
+                   chunk_us: dict) -> dict:
+    """Phase 7l's kernels on the shadow engine's last call: B1 (bf16 within
+    one ulp, f32 bitwise) and B3 (bitwise) on (a)'s shadow, B4 (bitwise) on
+    the ``rpn.nms_impl=pallas`` fleet's shadow, each timed as in phase 3:
+    the ``kernels`` line's ``@deploy`` entries."""
+    clock = Clock(dev)
+    iters, plain_iters = (2, 1) if rehearsal else (20, 3)
+    (pyr, rois), *_ = store["pool"]
+    fwd = {}
+    for dt, case in ((torch.bfloat16, "deploy"), (torch.float32, "f32_deploy")):
+        r = hold_fwd({l: f.to(dt) for l, f in pyr.items()}, rois, cfg.model.rcnn.pooled_size,
+                     cfg.model.rcnn.sampling_ratio, clock, iters, plain_iters)
+        if dt == torch.float32:
+            r["match"] = r["match"] and r["max_abs_err"] == 0.0
+        fwd[case] = r
+        log(f"[kernel:roi_align@deploy:{case}] {r['shape']}: match={r['match']} "
+            f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.4f} kernel_ms={r['kernel_ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f}")
+    middle = store.get("_launch") or store["fused_middle_levels_plain"]
+    found = {"fused_middle": hold_middle(middle[0], chunk_us["fused_middle"], clock, iters,
+                                         plain_iters),
+             "nms": hold_nms(nms_store["nms_keep_sorted_cuda"][0], chunk_us["nms"], clock, iters,
+                             plain_iters)}
+    log_proposal_kernels(found, "deploy")
+    return {"roi_align@deploy": kernel_entry(fwd), "fused_middle@deploy": found["fused_middle"],
+            "nms@deploy": found["nms"]}
+
+
+def deploy_phase(dev, rehearsal: bool, seed: int, chunk_us: dict) -> dict:
+    """Phase 7l: continuous deployment on ``r50_fpn_coco`` at full width
+    (800x1344, 1000 proposals, random weights from the seed,
+    ``serve.fused_middle=on``): ``build_fleet`` of 2 replicas on the one
+    card under a live ``SLOEngine`` (0.2 s), then (a) :func:`deploy_promote`
+    and :func:`deploy_proposals`, (b) :func:`deploy_reject`, (c)
+    :func:`deploy_rollback`, the kernels on the shadows' last calls
+    (:func:`deploy_kernels`), and, at once, (d) the soak with ``--deploy``
+    (:func:`deploy_soak`) and (e) (a) and (c) again under the sanitizer
+    (:func:`deploy_lockcheck`).  The ``deploy`` path's launches are (a)-(c)'s
+    on the first fleet (live replicas, shadows and golden sets; the single
+    runner's references not), ``deploy_proposals``'s the second fleet's."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    threads = torch.get_num_threads()
+    if rehearsal:
+        torch.set_num_threads(2)   # a few engines share the host: no oversubscription
+    work = os.path.join(ROOT, "runs", f"chip_smoke_deploy_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        return deploy_steps(dev, rehearsal, seed, chunk_us, work, t_phase)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.set_num_threads(threads)
+
+
+def deploy_steps(dev, rehearsal: bool, seed: int, chunk_us: dict, work: str,
+                 t_phase: float) -> dict:
+    """Phase 7l's steps in ``work`` (:func:`deploy_phase`)."""
+    from mx_rcnn_tpu_torch.ctrl import build_controller
+    from mx_rcnn_tpu_torch.ops.cuda.middle import fused_middle_levels
+    from mx_rcnn_tpu_torch.ops.cuda.nms import nms_mask_cuda
+    from mx_rcnn_tpu_torch.ops.cuda.roi_align import multilevel_roi_align_cuda
+    from mx_rcnn_tpu_torch.serve.engine import DetectorRunner
+
+    counters = {"roi_align": multilevel_roi_align_cuda, "fused_middle": fused_middle_levels,
+                "nms": nms_mask_cuda}
+    card = card_line() if dev.type == "cuda" else "cpu rehearsal"
+    images = FleetImages(rehearsal, seed)
+    fleet, cfg, variables, _, warm_s = fleet_start(dev, rehearsal, seed)
+    live_slo, _ = build_controller(cfg, fleet)
+    store, nms_store = {}, {}
+    try:
+        oracle = DetectorRunner(cfg, variables, batch_size=1, device=dev)
+        oracle.warmup()
+        live_slo.start(cfg.ctrl.period_s)
+        log(f"[deploy] {card}; {DEPLOY_CONFIG} at {cfg.data.image_size}, "
+            f"{cfg.model.rpn.test_post_nms_top_n} proposals, serve.fused_middle="
+            f"{cfg.serve.fused_middle}: 2 replicas warmed in {warm_s:.1f} s; live SLO every "
+            f"{cfg.ctrl.period_s} s (burn windows {cfg.ctrl.burn_fast_s} / {cfg.ctrl.burn_slow_s} s)")
+        for fn in counters.values():
+            fn.launches = 0
+        drills = deploy_drills(dev, rehearsal, seed, fleet, cfg, variables, images, counters,
+                               oracle, work, live_slo, store)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        prop = deploy_proposals(dev, rehearsal, seed, variables, images, counters, work, live_slo,
+                                nms_store)
+        clean = fleet.drain(timeout=FLEET_WAIT)
+    finally:
+        live_slo.stop()
+        fleet.stop()
+    if fleet_threads() or deploy_threads():
+        time.sleep(0.2)   # a request's watcher leaves just after its latch
+    left = fleet_threads() + deploy_threads()
+    log(f"[deploy:drain] drained clean {clean}; threads left {left}; deploy launches {launches}")
+    if not clean or left:
+        raise AssertionError(f"deploy drain: clean {clean}, threads left {left}")
+    if dev.type == "cuda" and min(launches["roi_align"], launches["fused_middle"]) < 1:
+        raise AssertionError(f"deploy: B1 or B3 never launched ({launches})")
+    kernels = deploy_kernels(dev, rehearsal, cfg, store, nms_store, chunk_us)
+    t0 = time.perf_counter()
+    soak_proc, child = deploy_soak(rehearsal, work), deploy_lockcheck(rehearsal, seed)
+    try:
+        soak = deploy_soak_result(soak_proc, t0)
+        sanitized = deploy_lockcheck_result(child, t0)
+    finally:
+        for proc in (soak_proc, child):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+    d = drills
+    log(f"[deploy] phase 7l {time.perf_counter() - t_phase:.2f} s: warm {warm_s:.2f} s; promote "
+        f"{ {k: round(s, 3) for k, s in d['promote']['spans'].items()} }; mAP live "
+        f"{d['reject']['map_live']:.4f} shadow {d['reject']['map_shadow']:.4f}; rollback "
+        f"{d['rollback']['burn_to_roll_s']:.3f} s after the burn, memory "
+        f"{d['rollback']['mem_mib'][0]:.1f} -> {d['rollback']['mem_mib'][1]:.1f} MiB; soak "
+        f"{soak['wall_s']:.2f} s ({soak['completed']} of {soak['submitted']}); sanitized child "
+        f"violations {sanitized['violations']}; {card}")
+    return {"paths": {"deploy": {"launches": launches},
+                      "deploy_proposals": {"launches": prop["launches"]}},
+            "kernels": kernels, "drills": drills, "soak": soak}
+
+
 FAST_PATHS = {"roi_align": ("fast_alt", "fast_ingraph", "fast_pipe"),
               "roi_align_bwd": ("fast_alt", "fast_ingraph"),
               "fused_middle": ("fast_alt", "fast_ingraph"), "nms": ("fast_pipe",)}
@@ -5728,13 +6451,15 @@ OBS_PATHS = {"roi_align": ("obs_train", "obs_serve"), "roi_align_bwd": ("obs_tra
              "fused_middle": ("obs_serve",), "nms": ("obs_proposals",)}
 FLEET_PATHS = {"roi_align": ("fleet", "fleet_proposals"), "fused_middle": ("fleet",),
                "nms": ("fleet_proposals",)}
+DEPLOY_PATHS = {"roi_align": ("deploy", "deploy_proposals"), "fused_middle": ("deploy",),
+                "nms": ("deploy_proposals",)}
 KERNELS = {
     "roi_align": ("mx_rcnn_tpu_torch/csrc/roi_align.cu", "mx_rcnn_tpu/ops/pallas/roi_align.py:393",
                   ("full", "train", "eval", "roidb", "c4_full", "c4_train", "c4_eval",
                    *FAST_PATHS["roi_align"], *MASK_PATHS["roi_align"],
                    *LADDER_PATHS["roi_align"], *FORMS_PATHS, *EVALX_PATHS,
                    *RUNTIME_PATHS["roi_align"], *OBS_PATHS["roi_align"],
-                   *FLEET_PATHS["roi_align"])),
+                   *FLEET_PATHS["roi_align"], *DEPLOY_PATHS["roi_align"])),
     "roi_align_bwd": ("mx_rcnn_tpu_torch/csrc/roi_align_bwd.cu",
                       "mx_rcnn_tpu/ops/pallas/roi_align.py:623",
                       ("train", "roidb", "c4_train", *FAST_PATHS["roi_align_bwd"],
@@ -5744,10 +6469,12 @@ KERNELS = {
                      "mx_rcnn_tpu/ops/pallas/middle.py:145",
                      ("full", "c4_full", *FAST_PATHS["fused_middle"],
                       *MASK_PATHS["fused_middle"], *LADDER_PATHS["fused_middle"],
-                      *OBS_PATHS["fused_middle"], *FLEET_PATHS["fused_middle"])),
+                      *OBS_PATHS["fused_middle"], *FLEET_PATHS["fused_middle"],
+                      *DEPLOY_PATHS["fused_middle"])),
     "nms": ("mx_rcnn_tpu_torch/csrc/nms.cu", "mx_rcnn_tpu/ops/pallas/nms.py:75",
             ("proposals", "c4_proposals", *FAST_PATHS["nms"], *MASK_PATHS["nms"],
-             *LADDER_PATHS["nms"], *OBS_PATHS["nms"], *FLEET_PATHS["nms"])),
+             *LADDER_PATHS["nms"], *OBS_PATHS["nms"], *FLEET_PATHS["nms"],
+             *DEPLOY_PATHS["nms"])),
 }
 # Phase c4's entries: the same kernels at the single-level C4 shapes,
 # counted over phase c4's paths alone.
@@ -5775,6 +6502,9 @@ KERNELS.update({f"{k}@accum": (*KERNELS[k][:2], ("forms_accum",))
 # Phase 7k's entries: B1, B3 and B4 at the fleet's shapes (800x1344, one
 # request a call), counted over phase 7k's paths alone.
 KERNELS.update({f"{k}@fleet": (*KERNELS[k][:2], on) for k, on in FLEET_PATHS.items()})
+# Phase 7l's entries: B1, B3 and B4 on the shadow engines' last calls (800x1344,
+# one request a call), counted over phase 7l's paths alone.
+KERNELS.update({f"{k}@deploy": (*KERNELS[k][:2], on) for k, on in DEPLOY_PATHS.items()})
 
 
 PKG = "mx_rcnn_tpu_torch"
@@ -5883,6 +6613,8 @@ def main() -> int:
                     help="phase 7j (d)'s child: run under MX_RCNN_LOCKCHECK=1 by the smoke")
     ap.add_argument("--fleet-lockcheck-child", action="store_true",
                     help="phase 7k's sanitized child: run under MX_RCNN_LOCKCHECK=1 by the smoke")
+    ap.add_argument("--deploy-lockcheck-child", action="store_true",
+                    help="phase 7l's sanitized child: run under MX_RCNN_LOCKCHECK=1 by the smoke")
     ap.add_argument("--parent", default=None,
                     help="another tree (e.g. the parent commit from git archive): hold B1, "
                          "B2, B3 and B4 bitwise against its kernels and time each in turns")
@@ -5914,6 +6646,8 @@ def main() -> int:
         return lockcheck_child(dev, args.cpu_rehearsal, args.seed)
     if args.fleet_lockcheck_child:
         return fleet_lockcheck_child(dev, args.cpu_rehearsal, args.seed)
+    if args.deploy_lockcheck_child:
+        return deploy_lockcheck_child(dev, args.cpu_rehearsal, args.seed)
 
     if not args.cpu_rehearsal:
         t0 = time.perf_counter()
@@ -5958,6 +6692,8 @@ def main() -> int:
     paths.update(obs_phase(dev, args.cpu_rehearsal, args.seed, paths["train"])["paths"])
     fleet = fleet_phase(dev, args.cpu_rehearsal, args.seed, chunk_us)
     paths.update(fleet["paths"])
+    deploy = deploy_phase(dev, args.cpu_rehearsal, args.seed, chunk_us)
+    paths.update(deploy["paths"])
     if not args.cpu_rehearsal:
         reference_phase(dev, args.seed)
         train_reference_phase(dev, args.seed)
@@ -5968,6 +6704,7 @@ def main() -> int:
     kernels.update(ladder["kernels"])
     kernels.update(forms["kernels"])
     kernels.update(fleet["kernels"])
+    kernels.update(deploy["kernels"])
 
     line = []
     for name, (source, replaces, on) in KERNELS.items():

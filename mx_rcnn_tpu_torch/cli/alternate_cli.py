@@ -109,7 +109,7 @@ def alternate_train(cfg: Config, phase_steps: Optional[int] = None,
     runs the first phases only; ``external_proposals``: the reference's
     schedule (module docstring)."""
     from mx_rcnn_tpu_torch.cli.eval_cli import dump_proposals
-    from mx_rcnn_tpu_torch.train.checkpoint import save_checkpoint
+    from mx_rcnn_tpu_torch.train.checkpoint import save_checkpoint, state_payload
     from mx_rcnn_tpu_torch.train.loop import build_all, checkpoint_dir, train
 
     workdir = workdir or cfg.workdir
@@ -143,7 +143,7 @@ def alternate_train(cfg: Config, phase_steps: Optional[int] = None,
     # no phase freeze) is what eval_cli and train_cli restore into.
     combined = build_all(cfg, device, variables=state.model.state_dict())[2]
     combined.step = state.step
-    save_checkpoint(checkpoint_dir(cfg, workdir), combined)
+    save_checkpoint(checkpoint_dir(cfg, workdir), state_payload(combined))
     return combined
 
 

@@ -340,9 +340,9 @@ class ObsConfig:
 @dataclass(frozen=True)
 class DeployConfig:
     """Continuous deployment knobs (shadow canaries, parity-gated promotion,
-    burn-triggered rollback), read as ``cfg.ctrl.deploy.*``.  The port has
-    no reader yet: the Deployer (JAX ``ctrl/deploy.py``) is not ported.
-    The fields are here so that the same ``--set ctrl.deploy.*`` list
+    burn-triggered rollback), read as ``cfg.ctrl.deploy.*`` by
+    ``ctrl/deploy.py::build_deployer`` (the soak's ``--deploy`` and
+    ``tools/deploy_watch.py``); the same ``--set ctrl.deploy.*`` list
     parses in both packages."""
 
     # Master switch: serving entry points that honour it run a Deployer

@@ -1,8 +1,7 @@
-"""Closed-loop control plane: SLOs, burn-rate alerts, autoscaling.
+"""Closed-loop control plane: SLOs, burn-rate alerts, autoscaling,
+continuous deployment.
 
-The port's own copy of ``mx_rcnn_tpu/ctrl/``, less the Deployer
-(``ctrl/deploy.py``: shadow canaries, the parity gate and rollback),
-which is not ported yet.  The observability plane
+The port's own copy of ``mx_rcnn_tpu/ctrl/``.  The observability plane
 (``mx_rcnn_tpu_torch.obs``) *watches* the serving stack; this package
 *acts* on what it sees:
 
@@ -14,6 +13,11 @@ which is not ported yet.  The observability plane
   queue-depth / shed-rate / windowed-p99 pressure into
   ``FleetRouter.add_replica()`` / ``retire_replica()`` calls, with
   scale-down hysteresis mirroring ``serve/degrade.HysteresisPlanner``.
+* ``ctrl/deploy.py`` — a :class:`Deployer` that watches the checkpoint
+  directory, stages candidates as shadow canaries behind a
+  parity + shadow-SLO gate, promotes through the one-at-a-time weight
+  roll, and rolls back automatically on a post-promote burn alert;
+  :func:`build_deployer` wires it from ``cfg.ctrl.deploy``.
 
 Everything here is host-side control logic; knobs live under
 ``cfg.ctrl`` (:class:`mx_rcnn_tpu_torch.config.CtrlConfig`).
@@ -24,6 +28,11 @@ from mx_rcnn_tpu_torch.ctrl.autoscale import (
     ScalePolicy,
     ScaleSignals,
     desired_action,
+)
+from mx_rcnn_tpu_torch.ctrl.deploy import (
+    Deployer,
+    ShadowVerdict,
+    build_deployer,
 )
 from mx_rcnn_tpu_torch.ctrl.slo import (
     SLO,
@@ -61,4 +70,7 @@ __all__ = [
     "ScaleSignals",
     "desired_action",
     "build_controller",
+    "Deployer",
+    "ShadowVerdict",
+    "build_deployer",
 ]

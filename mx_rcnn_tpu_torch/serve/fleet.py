@@ -194,8 +194,8 @@ class _Replica:
 
 
 class _Mirror:
-    """Shadow-canary mirroring hook (the Deployer's, JAX ctrl/deploy.py;
-    not ported yet): every Nth accepted
+    """Shadow-canary mirroring hook (the Deployer's, ctrl/deploy.py):
+    every Nth accepted
     submission's image is handed to ``fn`` out of band.  The hook only
     ever sees a copy of the input, never the caller's request result
     path, so shadow responses cannot reach callers by construction."""

@@ -12,11 +12,14 @@ Layout, one directory a step:
 
 The manifest has the JAX package's schema, so its ``verify_manifest``
 (and the deployer in ``ctrl/deploy.py``) accepts a port checkpoint.  A
-step is written into ``<ckpt>/.saving`` and renamed into place, so a
-step directory is complete or absent; the manifest follows the rename.
+step is written into ``<ckpt>/.saving``, its manifest written, and the
+step renamed into place, so a step directory is complete or absent and a
+reader that lists it finds its manifest.
 ``restore_checkpoint`` walks back past a step that is truncated or
-corrupt on disk, fails its manifest, or fails the caller's ``validate``.
-One process writes a checkpoint directory at a time.
+corrupt on disk, fails its manifest, or fails the caller's ``validate``;
+``restore_raw`` returns a step's payload with no model to load it into
+(the deployer's candidates).  One process writes a checkpoint directory
+at a time.
 """
 
 from __future__ import annotations
@@ -95,6 +98,17 @@ def state_payload(state: TrainState) -> dict:
     }
 
 
+def weights_payload(step: int, state_dict: dict) -> dict:
+    """A checkpoint payload of weights alone (serving weights to deploy):
+    ``state_dict`` as the model, as CPU tensors, and no momentum."""
+    return {
+        "step": int(step),
+        "model": {k: torch.as_tensor(v).detach().to("cpu", copy=True)
+                  for k, v in state_dict.items()},
+        "optimizer": {"step": int(step), "momentum": {}},
+    }
+
+
 def load_payload(state: TrainState, payload: dict) -> TrainState:
     """Copy a checkpoint's payload into ``state`` in place."""
     opt = state.optimizer
@@ -119,14 +133,14 @@ def step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), str(int(step)))
 
 
-def write_manifest(ckpt_dir: str, step: int, payload: dict) -> str:
+def write_manifest(ckpt_dir: str, step: int, payload: dict, files_dir: str) -> str:
     """``manifest-<step>.json`` beside the step directory: the step, the
-    payload's tree CRC, whether it is finite, and each file's size and
-    CRC.  Atomic via tmp + rename."""
-    sdir = step_dir(ckpt_dir, step)
+    payload's tree CRC, whether it is finite, and the size and CRC of each
+    file in ``files_dir`` (the step's files before they are renamed into
+    place).  Atomic via tmp + rename."""
     files = {}
-    for name in sorted(os.listdir(sdir)):
-        with open(os.path.join(sdir, name), "rb") as f:
+    for name in sorted(os.listdir(files_dir)):
+        with open(os.path.join(files_dir, name), "rb") as f:
             data = f.read()
         files[name] = {"bytes": len(data), "crc": zlib.crc32(data)}
     manifest = {"step": int(step), "tree_crc": tree_crc(payload),
@@ -171,11 +185,12 @@ def verify_manifest(ckpt_dir: str, step: int) -> tuple[bool, str]:
     return True, "ok"
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
-    """Save ``state`` at its step and write its manifest; a step already
-    on disk is left alone.  Returns the step directory."""
+def save_checkpoint(ckpt_dir: str, payload: dict) -> str:
+    """Save ``payload`` (:func:`state_payload`'s or :func:`weights_payload`'s)
+    at its step and write its manifest; a step already on disk is left
+    alone.  Returns the step directory."""
     root = os.path.abspath(ckpt_dir)
-    step = int(state.step)
+    step = int(payload["step"])
     final = step_dir(root, step)
     if os.path.exists(os.path.join(final, STATE_FILE)):
         return final
@@ -183,14 +198,15 @@ def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
     tmp = os.path.join(root, _SAVING)
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    payload = state_payload(state)
     with open(os.path.join(tmp, STATE_FILE), "wb") as f:
         torch.save(payload, f)
         f.flush()
         os.fsync(f.fileno())
+    # The manifest lands first: a reader that lists the step (the deployer
+    # polls the directory) always finds it.
+    write_manifest(root, step, payload, tmp)
     shutil.rmtree(final, ignore_errors=True)
     os.rename(tmp, final)
-    write_manifest(root, step, payload)
     return final
 
 
@@ -270,3 +286,28 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState, step: Optional[int] = 
                         "earlier step", s, ckpt_dir, type(e).__name__, e)
     raise RuntimeError(f"every checkpoint under {ckpt_dir} failed to restore (steps tried: "
                        f"{candidates}); last error: {last_err!r}")
+
+
+def restore_raw(ckpt_dir: str, step: Optional[int] = None) -> dict:
+    """A step's payload (``{"step", "model", "optimizer"}``) with no model to
+    load it into.  ``step=None`` takes the newest step and walks back past
+    one that does not load, as :func:`restore_checkpoint` does; an explicit
+    ``step`` raises instead.  As the JAX package's, it reads no manifest: a
+    caller that must trust the bytes verifies the manifest first (the
+    deployer does, ``ctrl/deploy.py``)."""
+    candidates = [step] if step is not None else list(reversed(all_steps(ckpt_dir)))
+    if not candidates:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    last_err: Optional[BaseException] = None
+    for s in candidates:
+        try:
+            return torch.load(os.path.join(step_dir(ckpt_dir, s), STATE_FILE),
+                              map_location="cpu", weights_only=True)
+        except Exception as e:
+            if step is not None:
+                raise
+            last_err = e
+            log.warning("raw restore of step %d from %s failed (%s); trying an earlier step",
+                        s, ckpt_dir, type(e).__name__)
+    raise RuntimeError(f"every checkpoint under {ckpt_dir} failed raw restore; "
+                       f"last error: {last_err!r}")

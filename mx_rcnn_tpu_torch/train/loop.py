@@ -65,6 +65,7 @@ from mx_rcnn_tpu_torch.train.checkpoint import (
     latest_step,
     restore_checkpoint,
     save_checkpoint,
+    state_payload,
 )
 from mx_rcnn_tpu_torch.train.guardian import Guardian
 from mx_rcnn_tpu_torch.train.metrics import ScalarWriter, Speedometer, host_interval_metrics
@@ -296,7 +297,7 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
         if latest_step(ckpt_dir) is None:
             # A rollback or resume inside the first checkpoint interval
             # returns here rather than aborting.
-            save_checkpoint(ckpt_dir, state)
+            save_checkpoint(ckpt_dir, state_payload(state))
             obs.emit("train", "checkpoint_saved", {"step": state.step}, logger=logger)
 
     stall = PrefetchStats()
@@ -380,13 +381,13 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
                             writer.write(done, {name: v for name, v in means.items()
                                                 if name != "nonfinite"})
                     if at_ckpt:
-                        save_checkpoint(ckpt_dir, state)
+                        save_checkpoint(ckpt_dir, state_payload(state))
                         obs.emit("train", "checkpoint_saved", {"step": done}, logger=logger)
                 if preempt.triggered:
                     # Drained: persist synchronously and exit resumable.
                     obs.emit("train", "preempt_drain", {"step": done}, logger=logger)
                     if workdir:
-                        save_checkpoint(ckpt_dir, state)
+                        save_checkpoint(ckpt_dir, state_payload(state))
                         obs.emit("train", "checkpoint_saved", {"step": done}, logger=logger)
                     obs.flight_dump("preempt_drain")
                     raise Preempted(done, ckpt_dir if workdir else None)
@@ -399,6 +400,6 @@ def train(cfg: Config, steps: Optional[int] = None, device=None,
         if writer:
             writer.close()
     if workdir:
-        save_checkpoint(ckpt_dir, state)
+        save_checkpoint(ckpt_dir, state_payload(state))
         obs.emit("train", "checkpoint_saved", {"step": steps}, logger=logger)
     return state

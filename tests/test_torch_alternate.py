@@ -143,7 +143,7 @@ def test_fast_rcnn_pipe_through_the_clis(small_roidb, tmp_path, capsys):
     _, _, state, _, _ = loop.build_all(apply_overrides(get_config("tiny_synthetic"), OVERRIDES),
                                        "cpu")
     ckpt = ["--ckpt", str(tmp_path / "ckpt")]
-    C.save_checkpoint(ckpt[1], state)
+    C.save_checkpoint(ckpt[1], C.state_payload(state))
     pkl = str(tmp_path / "val.pkl")
     props = eval_cli.main([*common, *ckpt, "--proposals", pkl, "--proposals-split", "val"])
     assert sorted(props) == sorted(r.image_id for r in small_roidb)

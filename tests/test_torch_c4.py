@@ -440,7 +440,7 @@ def test_c4_checkpoint_passes_the_jax_manifest_check(tmp_path):
     cfg, _ = _configs("r50_coco")
     _, _, state, _, _ = build_all(cfg, "cpu")
     state.step = 3
-    C.save_checkpoint(str(tmp_path), state)
+    C.save_checkpoint(str(tmp_path), C.state_payload(state))
     assert jax_verify_manifest(str(tmp_path), 3) == (True, "ok")
     _, _, fresh, _, _ = build_all(apply_overrides(cfg, ["train.seed=9"]), "cpu")
     restored = C.restore_checkpoint(str(tmp_path), fresh)

@@ -65,7 +65,7 @@ def same_state(a: TrainState, b: TrainState) -> bool:
 
 def test_round_trip_is_bitwise(tmp_path):
     state = advance(small_state(0), 3)
-    path = C.save_checkpoint(str(tmp_path), state)
+    path = C.save_checkpoint(str(tmp_path), C.state_payload(state))
     assert path == str(tmp_path / "3") and sorted(os.listdir(tmp_path)) == ["3", "manifest-3.json"]
     assert C.all_steps(str(tmp_path)) == [3] and C.latest_step(str(tmp_path)) == 3
     restored = C.restore_checkpoint(str(tmp_path), small_state(1))
@@ -73,7 +73,7 @@ def test_round_trip_is_bitwise(tmp_path):
     assert C.tree_crc(C.state_payload(restored)) == C.read_manifest(str(tmp_path), 3)["tree_crc"]
     # A step already on disk is left alone.
     before = (tmp_path / "3" / C.STATE_FILE).read_bytes()
-    C.save_checkpoint(str(tmp_path), advance(small_state(2), 3))
+    C.save_checkpoint(str(tmp_path), C.state_payload(advance(small_state(2), 3)))
     assert (tmp_path / "3" / C.STATE_FILE).read_bytes() == before
 
 
@@ -84,7 +84,7 @@ def test_restore_walks_back_past_a_broken_latest_step(tmp_path, damage):
     saved = {}
     for _ in range(2):
         advance(state, 2)
-        C.save_checkpoint(str(tmp_path), state)
+        C.save_checkpoint(str(tmp_path), C.state_payload(state))
         saved[state.step] = C.state_payload(state)
     latest = tmp_path / "4" / C.STATE_FILE
     data = latest.read_bytes()
@@ -115,11 +115,11 @@ def test_restore_walks_back_past_a_broken_latest_step(tmp_path, damage):
 def test_restore_walks_back_past_a_step_that_fails_validate(tmp_path):
     state = small_state(0)
     advance(state, 1)
-    C.save_checkpoint(str(tmp_path), state)
+    C.save_checkpoint(str(tmp_path), C.state_payload(state))
     with torch.no_grad():
         state.model.fc.weight[0, 0] = float("nan")
     advance(state, 1)
-    C.save_checkpoint(str(tmp_path), state)
+    C.save_checkpoint(str(tmp_path), C.state_payload(state))
     assert C.read_manifest(str(tmp_path), 2)["valid"] is False
     assert jax_verify_manifest(str(tmp_path), 2) == (False, "invalid_at_save")
     restored = C.restore_checkpoint(str(tmp_path), small_state(1), validate=C.finite_state)
@@ -132,7 +132,7 @@ def test_restore_walks_back_past_a_step_that_fails_validate(tmp_path):
 
 def test_jax_verify_manifest_accepts_the_port_manifest(tmp_path):
     state = advance(small_state(0), 5)
-    C.save_checkpoint(str(tmp_path), state)
+    C.save_checkpoint(str(tmp_path), C.state_payload(state))
     assert jax_verify_manifest(str(tmp_path), 5) == (True, "ok")
     assert C.verify_manifest(str(tmp_path), 5) == (True, "ok")
     manifest = json.loads((tmp_path / "manifest-5.json").read_text())

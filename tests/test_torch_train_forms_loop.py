@@ -146,7 +146,7 @@ def test_checkpoint_crc_covers_bn_buffers(work):
     cfg = _tiny("model.backbone.norm=bn")
     _, _, state, _, _ = build_all(cfg, device="cpu")
     before = tree_crc(state_payload(state))
-    save_checkpoint(str(work), state)
+    save_checkpoint(str(work), state_payload(state))
     with torch.no_grad():
         state.model.backbone.bn1.mean.add_(1.0)
     assert tree_crc(state_payload(state)) != before

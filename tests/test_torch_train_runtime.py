@@ -265,7 +265,7 @@ def test_delete_steps_after_and_restore_max_step(tmp_path):
     _, _, state, _, _ = L.build_all(cfg, "cpu")
     for s in (0, 2, 4):
         state.step = s
-        C.save_checkpoint(str(tmp_path), state)
+        C.save_checkpoint(str(tmp_path), C.state_payload(state))
     assert C.delete_steps_after(str(tmp_path), 2) == [4]
     assert C.all_steps(str(tmp_path)) == [0, 2]
     assert sorted(os.listdir(tmp_path)) == ["0", "2", "manifest-0.json", "manifest-2.json"]
